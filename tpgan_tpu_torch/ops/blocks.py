@@ -1,0 +1,396 @@
+"""Core building blocks — the port of ``tpgan_tpu/ops/blocks.py`` (itself
+a re-design of the reference layer factory, ModificationLayer.py:5-301).
+
+Semantics kept from the JAX blocks (each held against them in
+tests/test_torch_blocks.py):
+
+* ``bias = not use_batchnorm`` (ModificationLayer.py:98,187,221).
+* Norm/activation ordering: saturating activations (sigmoid/tanh) come
+  *before* BatchNorm, everything else after (ModificationLayer.py:141-151).
+* 4-element padding means reflection padding (left, right, top, bottom)
+  with the conv itself unpadded (ModificationLayer.py:83-96).
+* ResidualBlock: default out = in // stride, default padding (k-1)//2,
+  output = act(main(x) + scaling_factor * shortcut(x)); an identity
+  shortcut with in != out or stride != 1 is rejected, as in the JAX block.
+
+PyTorch layout: NCHW activations, OIHW conv weights, IOHW transposed-conv
+weights, (out, in) linear weights, and BatchNorm buffers named
+``running_mean`` / ``running_var`` — so reference-layout state_dicts load.
+Parameter names follow the JAX tree (``conv``, ``deconv``, ``bn``,
+``conv0``...), which keeps :mod:`tpgan_tpu_torch.convert` a mechanical walk.
+
+Each conv casts its input to its weight's dtype, as every JAX conv casts
+to its compute dtype; the compute dtype is the weights' dtype
+(``train.gan_trainer.make_synthesize_fn`` casts a serving copy).
+
+Left out of this port, on purpose:
+
+* ``accum_f32`` (JAX's f32-emitting MXU conv) — torch/cuDNN accumulate
+  in f32 and round once on output either way; the option is omitted.
+* ``pad_in_multiple`` (TPU lane alignment) — it changes the stored kernel
+  shapes, so ``build_generator`` rejects ``G.pad_channel_multiple``.
+* The int8 post-training-quantization hooks (``ops/quant.py``) — a later
+  slice of the port.
+* ``groups`` > 1, ``bias_init`` and ``pre_activation``: no generator
+  layer uses them (the detector slice brings the first two).
+* The subpixel phase decomposition: ``"subpixel"`` maps onto the same
+  ``conv_transpose2d`` as ``"deconv"`` (same math, same parameters).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpgan_tpu_torch.ops import initializers as init_lib
+from tpgan_tpu_torch.ops.activations import (
+    Activation,
+    apply_activation,
+    is_saturating,
+    negative_slope,
+)
+
+Padding = Union[int, Tuple[int, int], Tuple[int, int, int, int]]
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _canon_padding(padding: Padding):
+    """Reference-style padding -> (reflect_lrtb | None, (pad_h, pad_w))."""
+    if isinstance(padding, int):
+        return None, (padding, padding)
+    padding = tuple(padding)
+    if len(padding) == 2:  # torch (padH, padW)
+        return None, padding
+    if len(padding) == 4:  # reference list => ReflectionPad2d(l,r,t,b)
+        return padding, (0, 0)
+    raise ValueError(f"padding must have 1, 2 or 4 elements, got {padding}")
+
+
+def reflect_pad(x: torch.Tensor, lrtb: Sequence[int]) -> torch.Tensor:
+    """ReflectionPad2d, torch's (left, right, top, bottom) order, NCHW."""
+    return F.pad(x, tuple(lrtb), mode="reflect")
+
+
+class Conv2d(nn.Module):
+    """Conv with torch-default init and reference padding forms; OIHW."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Union[int, Tuple[int, int]],
+        stride: Union[int, Tuple[int, int]] = 1,
+        padding: Padding = 0,
+        use_bias: bool = True,
+        kernel_init=None,
+        device=None,
+    ):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.reflect, self.padding = _canon_padding(padding)
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kh, kw, device=device)
+        )
+        self.bias = (
+            nn.Parameter(torch.empty(out_channels, device=device)) if use_bias else None
+        )
+        self._kernel_init = kernel_init or init_lib.torch_default_conv()
+        self._bias_init = init_lib.uniform_bias(kh * kw * in_channels)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self._kernel_init(self.weight, generator)
+        if self.bias is not None:
+            self._bias_init(self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        if self.reflect is not None:
+            x = reflect_pad(x, self.reflect)
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.Module):
+    """torch ConvTranspose2d(k, s, p, output_padding); weight IOHW
+    (in, out, kh, kw), the layout the JAX kernel (kh, kw, in, out) maps to
+    without a flip (reference usage: D_and_G_model.py:218-220 —
+    deconv_8's k8-from-1x1 and deconv_32's stride 4)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Union[int, Tuple[int, int]],
+        stride: Union[int, Tuple[int, int]] = 1,
+        padding: Union[int, Tuple[int, int]] = 0,
+        output_padding: Union[int, Tuple[int, int]] = 0,
+        use_bias: bool = True,
+        kernel_init=None,
+        device=None,
+    ):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = _pair(output_padding)
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, out_channels, kh, kw, device=device)
+        )
+        self.bias = (
+            nn.Parameter(torch.empty(out_channels, device=device)) if use_bias else None
+        )
+        self._kernel_init = kernel_init or init_lib.torch_default_deconv()
+        # torch ConvTranspose2d bias bound uses fan_in = out*kh*kw
+        self._bias_init = init_lib.uniform_bias(kh * kw * out_channels)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self._kernel_init(self.weight, generator)
+        if self.bias is not None:
+            self._bias_init(self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x.to(self.weight.dtype), self.weight, self.bias,
+            self.stride, self.padding, self.output_padding,
+        )
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch BatchNorm2d (eps 1e-5, momentum 0.1) that normalises in f32
+    and casts back to the input dtype, as the JAX BatchNorm2d does
+    (``tpgan_tpu/ops/blocks.py:435-457``). Eval mode normalises with the
+    running statistics; training-mode statistics are held against the
+    JAX package with the training slice."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+def _norm_act(bn: Optional[BatchNorm2d], h: torch.Tensor, act: Activation) -> torch.Tensor:
+    if bn is None:
+        return apply_activation(h, act)
+    if is_saturating(act):
+        return bn(apply_activation(h, act))
+    return apply_activation(bn(h), act)
+
+
+class ConvBlock(nn.Module):
+    """conv + optional BatchNorm + activation, with the reference's
+    ordering rules (reference: ModificationLayer.py:54-156)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Union[int, Tuple[int, int]],
+        stride: Union[int, Tuple[int, int]] = 1,
+        padding: Padding = 0,
+        weight_init: Optional[str] = "kaiming",
+        activation: Activation = ("relu", 0.0),
+        use_batchnorm: bool = False,
+        device=None,
+    ):
+        super().__init__()
+        self.activation = activation
+        self.conv = Conv2d(
+            in_channels, out_channels, kernel_size, stride, padding,
+            use_bias=not use_batchnorm,
+            kernel_init=init_lib.conv_kernel_init(weight_init, negative_slope(activation)),
+            device=device,
+        )
+        self.bn = BatchNorm2d(out_channels, device=device) if use_batchnorm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _norm_act(self.bn, self.conv(x), self.activation)
+
+
+class DeconvBlock(nn.Module):
+    """Upsampler + optional BatchNorm + activation
+    (reference: ModificationLayer.py:158-202).
+
+    ``mode``: ``"deconv"`` (reference parity) and ``"subpixel"`` are the same
+    transposed conv with the same parameters (``deconv``); ``"resize_conv"``
+    is a nearest repeat to the transposed conv's output size followed by a
+    3x3 stride-1 conv (parameters ``conv``) — the JAX block's
+    checkerboard-artifact fix."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Union[int, Tuple[int, int]],
+        stride: Union[int, Tuple[int, int]] = 1,
+        padding: Union[int, Tuple[int, int]] = 0,
+        output_padding: Union[int, Tuple[int, int]] = 0,
+        weight_init: Optional[str] = "kaiming",
+        activation: Activation = ("relu", 0.0),
+        use_batchnorm: bool = False,
+        mode: str = "deconv",
+        device=None,
+    ):
+        super().__init__()
+        self.activation = activation
+        self.mode = mode
+        slope = negative_slope(activation)
+        if mode == "resize_conv":
+            # torch ConvTranspose2d output length = (n-1)*s - 2p + k + op
+            self._geom = tuple(
+                zip(_pair(kernel_size), _pair(stride), _pair(padding), _pair(output_padding))
+            )
+            self.conv = Conv2d(
+                in_channels, out_channels, 3, 1, 1,
+                use_bias=not use_batchnorm,
+                kernel_init=init_lib.conv_kernel_init(weight_init, slope),
+                device=device,
+            )
+        elif mode in ("deconv", "subpixel"):
+            self.deconv = ConvTranspose2d(
+                in_channels, out_channels, kernel_size, stride, padding,
+                output_padding,
+                use_bias=not use_batchnorm,
+                kernel_init=init_lib.deconv_kernel_init(weight_init, slope),
+                device=device,
+            )
+        else:
+            raise ValueError(f"unknown DeconvBlock mode {mode!r}")
+        self.bn = BatchNorm2d(out_channels, device=device) if use_batchnorm else None
+
+    def _upsample(self, h: torch.Tensor) -> torch.Tensor:
+        if self.mode != "resize_conv":
+            return self.deconv(h)
+        for dim, (k, s, p, op) in zip((2, 3), self._geom):
+            n = h.shape[dim]
+            out = (n - 1) * s - 2 * p + k + op
+            if out % n:
+                raise ValueError(
+                    f"resize_conv needs an integer upsampling ratio, got {n}->{out}"
+                )
+            h = h.repeat_interleave(out // n, dim=dim)
+        return self.conv(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _norm_act(self.bn, self._upsample(x), self.activation)
+
+
+class LinearBlock(nn.Module):
+    """Linear + optional BatchNorm + activation
+    (reference: ModificationLayer.py:204-231). Weight stored (out, in)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        activation: Activation = None,
+        use_batchnorm: bool = False,
+        kernel_init=None,
+        device=None,
+    ):
+        super().__init__()
+        self.activation = activation
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = (
+            None if use_batchnorm
+            else nn.Parameter(torch.empty(out_features, device=device))
+        )
+        self.bn = BatchNorm2d(out_features, device=device) if use_batchnorm else None
+        self._kernel_init = kernel_init or init_lib.torch_default_linear()
+        self._bias_init = init_lib.uniform_bias(in_features)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self._kernel_init(self.weight, generator)
+        if self.bias is not None:
+            self._bias_init(self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        if self.bn is not None:
+            y = self.bn(y[:, :, None, None])[:, :, 0, 0]
+        return apply_activation(y, self.activation)
+
+
+class ResidualBlock(nn.Module):
+    """Two-conv (or three-conv bottleneck) residual block
+    (reference: ModificationLayer.py:233-301).
+
+    out = act( main(x) + scaling_factor * shortcut(x) )
+
+    The shortcut is a 1x1 projection conv only when ``use_projection`` is
+    passed; an identity shortcut needs in == out and stride == 1.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: Optional[int] = None,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: Optional[Padding] = None,
+        weight_init: Optional[str] = "kaiming",
+        activation: Activation = ("relu", 0.0),
+        is_bottleneck: bool = False,
+        use_projection: bool = False,
+        scaling_factor: float = 1.0,
+        use_batchnorm: bool = False,
+        device=None,
+    ):
+        super().__init__()
+        out_ch = in_channels // stride if out_channels is None else out_channels
+        pad = (kernel_size - 1) // 2 if padding is None else padding
+        if not use_projection and (out_ch != in_channels or stride != 1):
+            raise ValueError(
+                "identity shortcut needs in==out and stride==1 "
+                f"(got in={in_channels}, out={out_ch}, stride={stride}); "
+                "pass use_projection=True — the reference would fail at "
+                "runtime here too (ModificationLayer.py:281-283)"
+            )
+        self.activation = activation
+        self.scaling_factor = scaling_factor
+        common = dict(use_batchnorm=use_batchnorm, device=device)
+        if is_bottleneck:
+            self.conv0 = ConvBlock(
+                in_channels, in_channels // 2, 1, 1, 0, weight_init, activation, **common
+            )
+            self.conv1 = ConvBlock(
+                in_channels // 2, out_ch // 2, kernel_size, stride,
+                (kernel_size - 1) // 2, weight_init, activation, **common,
+            )
+            self.conv2 = ConvBlock(out_ch // 2, out_ch, 1, 1, 0, None, None, **common)
+        else:
+            self.conv0 = ConvBlock(
+                in_channels, in_channels, kernel_size, 1, pad, weight_init,
+                activation, **common,
+            )
+            self.conv1 = ConvBlock(
+                in_channels, out_ch, kernel_size, 1, pad, None, None, **common
+            )
+            self.conv2 = None
+        self.shortcut = (
+            ConvBlock(in_channels, out_ch, 1, stride, 0, weight_init, None, device=device)
+            if use_projection else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(self.conv0(x))
+        if self.conv2 is not None:
+            h = self.conv2(h)
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return apply_activation(
+            torch.add(h, sc.to(h.dtype), alpha=self.scaling_factor), self.activation
+        )
+
+
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Re-draw every conv, transposed-conv and linear weight under
+    ``module`` from ``generator``, in registration order."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, LinearBlock)):
+            m.reset_parameters(generator)
