@@ -158,3 +158,43 @@ def test_seeded_build_is_reproducible():
     c = build_generator(cfg, "cpu", seed=4).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["global_pathway.fc1.weight"], c["global_pathway.fc1.weight"])
+
+
+def test_dropout_without_generator_or_mask_raises():
+    _jcfg, cfg = _cfgs("deconv")
+    gen = build_generator(cfg, "cpu", seed=0)
+    imgs, z = _inputs(seed=8)
+    with pytest.raises(ValueError, match="torch.Generator or a keep_mask"):
+        gen(*(torch.from_numpy(nchw(a)) for a in imgs), torch.from_numpy(z), use_dropout=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_injected_mask_reproduces_jax_dropout_exactly(dtype):
+    """FeaturePredict's dropout with JAX's mask: where(mask, x / keep, 0),
+    keep = 0.7 taken in x's dtype, bit for bit."""
+    import flax.linen as fnn
+
+    from tpgan_tpu_torch.models.generator import apply_dropout
+
+    x = np.random.RandomState(9).standard_normal((4, 256)).astype(np.float32)
+    jx = jnp.asarray(x, dtype=dtype)
+    want = fnn.Dropout(rate=0.3).apply({}, jx, deterministic=False,
+                                       rngs={"dropout": jax.random.PRNGKey(3)})
+    want = np.asarray(want.astype(jnp.float32))
+    mask = torch.from_numpy(want != 0)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = apply_dropout(tx, mask, 0.3)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_dropout_draws_from_the_explicit_generator():
+    _jcfg, cfg = _cfgs("deconv")
+    gen = build_generator(cfg, "cpu", seed=0)
+    imgs, z = _inputs(seed=10)
+    args = [torch.from_numpy(nchw(a)) for a in imgs] + [torch.from_numpy(z)]
+    with torch.no_grad():
+        runs = [gen(*args, use_dropout=True,
+                    dropout_generator=torch.Generator().manual_seed(s)).encoder_predict
+                for s in (1, 1, 2)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from tpgan_tpu_torch.config import make_config
-from tpgan_tpu_torch.entry import entry
-from tpgan_tpu_torch.train.gan_trainer import build_generator
+from tpgan_tpu_torch.entry import entry, train_entry
+from tpgan_tpu_torch.train.gan_trainer import build_generator, create_gan_state
 
 torch.set_num_threads(1)
 
@@ -65,6 +65,10 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_generator(make_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_gan_state(make_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_entry()
 
 
 def test_padded_channel_layout_is_refused():

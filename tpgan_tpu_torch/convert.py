@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's Generator to the port's.
+"""Carry weights from the JAX package's Generator and Discriminator to
+the port's.
 
 The inverse of ``tpgan_tpu/train/checkpoint.py``'s torch-to-Flax import
 (``conv_weight``, ``deconv_weight``, ``_bn`` and the fc1 flatten
@@ -103,3 +104,12 @@ def jax_generator_params_to_state_dict(
     for path, _bn in _bn_paths(params_np):
         sd[".".join(path) + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def jax_critic_params_to_state_dict(
+    params_np: Mapping[str, Any], batch_stats_np: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """The same walk for the JAX Discriminator's tree (``conv0``..``conv4``,
+    ``res3``, ``res4``, ``head``): it has no ``fc1`` and no ``deconv``, so
+    only the conv and BatchNorm rules apply. Load with ``strict=True``."""
+    return jax_generator_params_to_state_dict(params_np, batch_stats_np)

@@ -1,2 +1,2 @@
-"""The generator's modules: LocalPathway, the LocalFuser, GlobalPathway and
-Generator."""
+"""The generator's modules (LocalPathway, the LocalFuser, GlobalPathway,
+Generator) and the PatchGAN critic (Discriminator)."""

@@ -5,15 +5,19 @@ max-fuser, the GlobalPathway, and the identity classification head
 
 All three fuses go through the kernel wrapper ``ops.kernels.fuse_parts``:
 the hand-written CUDA kernel on the card, its plain version on the CPU.
+
+Dropout (``FeaturePredict``, rate 0.3) draws its mask from an explicit
+``torch.Generator`` or takes a precomputed keep-mask; with
+``use_dropout=True`` and neither, it raises. BatchNorm (when configured)
+follows the module's train/eval mode.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tpgan_tpu_torch.models.global_pathway import GlobalPathway
 from tpgan_tpu_torch.models.local_pathway import LocalPathway
@@ -40,10 +44,41 @@ class FeaturePredict(nn.Module):
             kernel_init=init_lib.torch_default_linear(), device=device,
         )
 
-    def forward(self, x: torch.Tensor, use_dropout: bool = False) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        use_dropout: bool = False,
+        generator: Optional[torch.Generator] = None,
+        keep_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         if use_dropout:
-            x = F.dropout(x, self.dropout, training=True)
+            if keep_mask is None:
+                if generator is None:
+                    raise ValueError(
+                        "use_dropout=True needs a torch.Generator or a keep_mask; "
+                        "the port draws no randomness from torch's global RNG"
+                    )
+                keep_mask = dropout_keep_mask(x.shape, self.dropout, generator, x.device)
+            x = apply_dropout(x, keep_mask, self.dropout)
         return self.fc(x)
+
+
+def dropout_keep_mask(
+    shape, rate: float, generator: torch.Generator, device=None
+) -> torch.Tensor:
+    """Boolean keep-mask, each element kept with probability 1 - rate."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def apply_dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """JAX's ``nn.Dropout``: ``where(mask, x / keep, 0)``. The JAX divisor
+    is the Python float ``keep`` taken in ``x``'s dtype, so it is rounded
+    to that dtype here too (0.69921875 in bfloat16)."""
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    if keep_mask.shape != x.shape:
+        raise ValueError(f"keep_mask {tuple(keep_mask.shape)} != input {tuple(x.shape)}")
+    return torch.where(keep_mask.to(device=x.device, dtype=torch.bool), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class GeneratorOutput(NamedTuple):
@@ -103,7 +138,11 @@ class Generator(nn.Module):
         mouth: torch.Tensor,
         z: torch.Tensor,
         use_dropout: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
+        drop_mask: Optional[torch.Tensor] = None,
     ) -> GeneratorOutput:
+        """``use_dropout=True`` needs ``dropout_generator`` or ``drop_mask``
+        (a boolean keep-mask of shape (B, 256))."""
         # Four independent per-part U-Nets (D_and_G_model.py:363-366,390-393)
         le_img, le_feat = self.local_left_eye(left_eye)
         re_img, re_feat = self.local_right_eye(right_eye)
@@ -122,7 +161,9 @@ class Generator(nn.Module):
         img128_fake, encoder_feature = self.global_pathway(
             i128, fused_fake, fused_feature, z
         )
-        encoder_predict = self.feature_predict(encoder_feature, use_dropout=use_dropout)
+        encoder_predict = self.feature_predict(
+            encoder_feature, use_dropout, dropout_generator, drop_mask
+        )
 
         return GeneratorOutput(
             img128_fake=img128_fake,

@@ -29,6 +29,12 @@ def leaky_relu(slope: float) -> Activation:
 
 
 def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
+    """``act`` applied to ``x``. One documented difference in the
+    gradient: at exactly x == 0, ``F.leaky_relu``'s backward gives the
+    slope where ``jax.nn.leaky_relu`` (``where(x >= 0, ...)``) gives 1.
+    The port keeps the single fused torch op: a pre-activation that is
+    exactly 0 needs a biased conv sum to cancel to the last bit, and the
+    train-step parity test (tests/test_torch_train_step.py) meets none."""
     if act is None:
         return x
     name, p = act

@@ -19,9 +19,25 @@ weights, (out, in) linear weights, and BatchNorm buffers named
 Parameter names follow the JAX tree (``conv``, ``deconv``, ``bn``,
 ``conv0``...), which keeps :mod:`tpgan_tpu_torch.convert` a mechanical walk.
 
-Each conv casts its input to its weight's dtype, as every JAX conv casts
-to its compute dtype; the compute dtype is the weights' dtype
-(``train.gan_trainer.make_synthesize_fn`` casts a serving copy).
+Compute dtype: each conv, transposed conv and linear layer casts its
+input *and* its weight (and bias) to ``compute_dtype`` inside
+``forward``, as every JAX layer casts to its module ``dtype``
+(``tpgan_tpu/ops/blocks.py:131,162,178``). Parameters stay float32, so
+autograd hands the optimizer float32 gradients of float32 masters. The
+attribute is ``None`` by default, meaning the weight's own dtype: the
+serving path (``train.gan_trainer.make_synthesize_fn``) casts a copy of
+the weights once instead. :func:`set_compute_dtype` sets it on a whole
+model. The bias is added by the conv itself (one rounding), where the
+JAX conv adds it after rounding the product to the compute dtype; in
+float32 the two agree to the last bits.
+
+BatchNorm always normalises in float32 and casts back. In train mode it
+normalises with the biased batch variance and advances the running
+statistics with momentum 0.1 and the unbiased variance
+(``tpgan_tpu/ops/blocks.py:437-451``); inside
+:func:`frozen_batch_stats` a train-mode forward normalises the same way
+but leaves the running statistics untouched — the critic's fake, GP and
+G-phase passes (``tpgan_tpu/train/gan_trainer.py:273-282,311``).
 
 Left out of this port, on purpose:
 
@@ -39,7 +55,8 @@ Left out of this port, on purpose:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -77,8 +94,20 @@ def reflect_pad(x: torch.Tensor, lrtb: Sequence[int]) -> torch.Tensor:
     return F.pad(x, tuple(lrtb), mode="reflect")
 
 
+def _cast(layer: nn.Module, x: torch.Tensor):
+    """(input, weight, bias) in the layer's compute dtype (the weight's
+    dtype when none is set)."""
+    dtype = layer.compute_dtype
+    if dtype is None or dtype == layer.weight.dtype:  # the serving copy: no cast
+        return x.to(layer.weight.dtype), layer.weight, layer.bias
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return x.to(dtype), layer.weight.to(dtype), bias
+
+
 class Conv2d(nn.Module):
     """Conv with torch-default init and reference padding forms; OIHW."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(
         self,
@@ -111,10 +140,10 @@ class Conv2d(nn.Module):
             self._bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
+        x, w, b = _cast(self, x)
         if self.reflect is not None:
             x = reflect_pad(x, self.reflect)
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return F.conv2d(x, w, b, self.stride, self.padding)
 
 
 class ConvTranspose2d(nn.Module):
@@ -122,6 +151,8 @@ class ConvTranspose2d(nn.Module):
     (in, out, kh, kw), the layout the JAX kernel (kh, kw, in, out) maps to
     without a flip (reference usage: D_and_G_model.py:218-220 —
     deconv_8's k8-from-1x1 and deconv_32's stride 4)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(
         self,
@@ -157,21 +188,43 @@ class ConvTranspose2d(nn.Module):
             self._bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x.to(self.weight.dtype), self.weight, self.bias,
-            self.stride, self.padding, self.output_padding,
-        )
+        x, w, b = _cast(self, x)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """torch BatchNorm2d (eps 1e-5, momentum 0.1) that normalises in f32
     and casts back to the input dtype, as the JAX BatchNorm2d does
     (``tpgan_tpu/ops/blocks.py:435-457``). Eval mode normalises with the
-    running statistics; training-mode statistics are held against the
-    JAX package with the training slice."""
+    running statistics. Train mode normalises with the batch statistics
+    (biased variance) and advances the running ones (momentum 0.1,
+    unbiased variance) unless ``advance_stats`` is False, which
+    :func:`frozen_batch_stats` sets."""
+
+    advance_stats: bool = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        x32 = x.float()
+        if self.training and not self.advance_stats:
+            y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        else:
+            y = super().forward(x32)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
+    """Within the block, train-mode forwards of ``module`` normalise with
+    their own batch statistics but advance no running statistics (the
+    JAX step discards those passes' ``batch_stats`` mutations)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.advance_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.advance_stats = True
 
 
 def _norm_act(bn: Optional[BatchNorm2d], h: torch.Tensor, act: Activation) -> torch.Tensor:
@@ -284,6 +337,8 @@ class LinearBlock(nn.Module):
     """Linear + optional BatchNorm + activation
     (reference: ModificationLayer.py:204-231). Weight stored (out, in)."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(
         self,
         in_features: int,
@@ -311,7 +366,7 @@ class LinearBlock(nn.Module):
             self._bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        y = F.linear(*_cast(self, x))
         if self.bn is not None:
             y = self.bn(y[:, :, None, None])[:, :, 0, 0]
         return apply_activation(y, self.activation)
@@ -386,6 +441,16 @@ class ResidualBlock(nn.Module):
         return apply_activation(
             torch.add(h, sc.to(h.dtype), alpha=self.scaling_factor), self.activation
         )
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Set the compute dtype of every conv, transposed conv and linear
+    layer under ``module`` (``None``: the weight's dtype). Parameters
+    keep their dtype; BatchNorm stays float32."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, LinearBlock)):
+            m.compute_dtype = dtype
+    return module
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:

@@ -1,1 +1,2 @@
-"""Generator construction and the synthesis (serving) function."""
+"""Model construction, the synthesis (serving) function, the fused
+WGAN-GP train step and its optimizer."""
