@@ -14,8 +14,12 @@ Phases, each of which exits non-zero on failure:
                  backward ``torch.equal`` (NaN cases included), the
                  symmetry+TV forward within rtol 1e-5 and bit-identical
                  over two runs, its backward within rtol 1e-6 on inputs
-                 with planted ties; a CUDA tensor the kernel does not take
-                 raises;
+                 with planted ties; the conv3x3+bias+LeakyReLU (K3) at the
+                 three A/B shapes in bf16, the first in f32, the JAX test's
+                 shape and an odd one, a NaN planted in x, bf16 within one
+                 bf16 ulp (2^-7 |want| + 1e-6 max|want|), f32 within
+                 1e-5 max|want|; a CUDA tensor the kernel does not take
+                 (dtype, mixed dtypes, layout, requires grad) raises;
 4. serve       — the full-size (fm=1.0, deconv) generator in bf16 from a
                  seeded init answers 4 requests of batch 8 through
                  ``build_generator`` / ``make_synthesize_fn``; 3 fuses per
@@ -37,12 +41,18 @@ Phases, each of which exits non-zero on failure:
                  leaf's largest (TRAIN_F32_GRAD_ULPS);
 8. timings     — each kernel against its plain version and its byte bound
                  (fuse forward at batch 8 and 128; the new kernels at
-                 batch 16 and 64); synthesis latency and images/s at batch
+                 batch 16 and 64; K3 in f32 at the A/B's first shape
+                 against cuDNN, TF32 off); synthesis latency and images/s at batch
                  8 and 128; train-step ms and images/s at batch 16 and 64
                  with peak memory; profiler breakdowns of the batch-8
-                 forward and of one batch-16 train step.
+                 forward and of one batch-16 train step;
+9. conv A/B    — ``tpgan_tpu_torch.examples.conv_ab``, K3's one path: the
+                 kernel against cuDNN's conv + epilogue and the plain
+                 version at the three head-area shapes, bf16; one JSON line
+                 per shape; K3's launches equal the calls the A/B made; a
+                 profile of the cuDNN call at the first shape.
 
-Counts are set to 0 just before each path (serve, train) is driven and
+Counts are set to 0 just before each path (serve, train, conv A/B) is driven and
 read just after; launches made to compare a kernel with its plain version
 do not count. Ends with a ``{"kernels": [...]}`` line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -53,16 +63,12 @@ from __future__ import annotations
 
 import contextlib
 import json
-import math
 import statistics
-import subprocess
 import sys
 import time
 import traceback
 from unittest import mock
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 FUSE_SHAPES = (  # (channels, dtype name): the three fuses of one forward
     (64, "bfloat16"),  # LocalPathway features, compute dtype
     (3, "bfloat16"),  # fake patches, compute dtype
@@ -74,7 +80,13 @@ BATCH = 8
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5
 TRAIN_F32_BATCH = 8
-PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1}
+PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1,
+            "conv3x3_bias_lrelu": 0}
+# K3 on the card: (B, H, W, Cin, Cout, dtype name) beside the three A/B
+# shapes in bf16 — the dominant one in f32, the JAX test's shape, odd sizes
+CONV_CHECKS = ((8, 128, 128, 64, 64, "float32"), (2, 16, 16, 8, 16, "float32"),
+               (2, 16, 16, 8, 16, "bfloat16"), (2, 9, 13, 5, 7, "float32"),
+               (2, 9, 13, 5, 7, "bfloat16"))
 F32_MAX_DIFF = 1e-6
 # bf16 keeps 8 mantissa bits: the bf16 serving output may differ from the
 # f32 one by a few percent of the output's range (the CPU test's bound)
@@ -96,36 +108,6 @@ TRAIN_F32_GRAD_ULPS = 4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_info() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def gpu_time_ms(fn, iters: int) -> float:
-    """Device time per call of ``fn``: a sleep kernel first lets the host
-    queue all ``iters`` launches, so the events bracket device work only."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def rotated(make, nbytes: int):
-    """Copies of an input set, enough to rotate past the 50 MB L2."""
-    return [make() for _ in range(max(1, math.ceil(200e6 / nbytes)))]
 
 
 def make_parts(batch, channels, dtype, seed, device):
@@ -255,6 +237,48 @@ def check_kernels(dev, errors):
             log(f"kernel check: {what} on a non-contiguous CUDA tensor raises (no fallback)")
 
 
+def check_conv3x3(dev, errors):
+    """Phase 3, K3: the kernel against its plain version, a NaN planted in
+    x; the refusals."""
+    import torch
+
+    from tpgan_tpu_torch.examples import conv_ab
+    from tpgan_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    slope = conv_ab.NEGATIVE_SLOPE
+    for *shape, dname in [(*s, "bfloat16") for s in conv_ab.SHAPES] + list(CONV_CHECKS):
+        x, k, b = conv_ab.make_inputs(tuple(shape), dev, getattr(torch, dname))
+        x[0, shape[1] // 2, shape[2] // 2, 0] = float("nan")
+        got = kernels.conv3x3_bias_lrelu(x, k, b, slope)
+        want = kernels.conv3x3_bias_lrelu_plain(x, k, b, slope)
+        torch.cuda.synchronize()
+        err = conv_ab.check_against_plain(got, want)
+        if int(got.isnan().sum()) != 9 * shape[4]:
+            raise AssertionError(f"conv3x3 {shape} {dname}: {int(got.isnan().sum())} NaNs, "
+                                 f"expected the pixel's 3x3 neighbourhood, {9 * shape[4]}")
+        errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
+        log(f"kernel check: conv3x3_bias_lrelu {tuple(shape)} {dname}: max|kernel - plain| "
+            f"{err:.3e} of max|plain| {float(want.nan_to_num(0).float().abs().max()):.4g}, "
+            f"within limits; the planted NaN covers its 3x3 neighbourhood")
+        del x, k, b, got, want
+
+    x, k, b = conv_ab.make_inputs((2, 9, 13, 5, 7), dev, torch.float32)
+    for what, exc, call in (
+        ("mixed dtypes", TypeError, lambda: kernels.conv3x3_bias_lrelu(x, k.bfloat16(), b)),
+        ("a float16 x", TypeError, lambda: kernels.conv3x3_bias_lrelu(x.half(), k.half(), b)),
+        ("a non-contiguous x", ValueError, lambda: kernels.conv3x3_bias_lrelu(
+            x.transpose(1, 2).contiguous().transpose(1, 2), k, b)),
+        ("an x that requires grad", ValueError, lambda: kernels.conv3x3_bias_lrelu(
+            x.clone().requires_grad_(), k, b)),
+    ):
+        try:
+            call()
+            raise AssertionError(f"conv3x3_bias_lrelu accepted {what}")
+        except exc:
+            log(f"kernel check: conv3x3_bias_lrelu on {what} raises (no fallback)")
+
+
 def train_metrics_ok(metrics) -> None:
     import torch
 
@@ -378,7 +402,9 @@ def time_kernels(dev, tag):
     byte bound, inputs rotated past L2."""
     import torch
 
+    from tpgan_tpu_torch.examples import conv_ab
     from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.utils.timing import HBM_BYTES_PER_S, gpu_time_ms, rotated
 
     rows = []
 
@@ -389,18 +415,6 @@ def time_kernels(dev, tag):
         log(f"time: {name} B={batch} {label}: kernel {k_ms * 1e3:.2f} us, plain "
             f"{p_ms * 1e3:.2f} us, byte bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB; "
             f"{bound_ms / k_ms:.0%} of bound) {tag}")
-
-    # K3 (conv3x3_bias_lrelu_pallas, not on any path) has no kernel yet;
-    # its bound at one real layer, global_pathway.conv6 at full size
-    # (64 -> 32 channels, 3x3, 128x128), batch 16, bf16:
-    b, cin, cout, hw = TRAIN_BATCH, 64, 32, 128
-    flops = 2 * b * hw * hw * cin * cout * 9
-    nbytes = 2 * (b * hw * hw * (cin + cout) + 9 * cin * cout + cout)
-    log(f"bound: K3 conv3x3+bias+LeakyReLU at global_pathway.conv6 (B={b}, {cin}->{cout}, "
-        f"{hw}x{hw}, bf16): {flops / 1e9:.2f} GFLOP in {flops / BF16_FLOPS * 1e6:.2f} us, "
-        f"{nbytes / 1e6:.2f} MB in {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us: bound by "
-        f"{'bytes' if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS else 'operations'}, "
-        f"{max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e6:.2f} us")
 
     for batch in (BATCH, 128):
         for c, dname in FUSE_SHAPES:
@@ -413,6 +427,12 @@ def time_kernels(dev, tag):
             p_ms = gpu_time_ms(lambda: kernels.fuse_parts_plain(*copies[next(it) % len(copies)]), 50)
             row("fuse_parts", batch, f"C={c} {dname}", k_ms, p_ms, nbytes)
             del parts, copies
+
+    # K3 in f32 at the A/B's first shape (CUDA cores, TF32 off everywhere)
+    r = conv_ab.measure(conv_ab.SHAPES[0], dev, torch.float32)
+    log(f"time: conv3x3_bias_lrelu {tuple(r['shape'])} float32: kernel {r['kernel_us']:.2f} us, "
+        f"cuDNN {r['cudnn_us']:.2f} us, plain {r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us "
+        f"({r['bound_by']}; {r['bound_us'] / r['kernel_us']:.0%} of bound) {tag}")
 
     for batch in (TRAIN_BATCH, 64):
         for c, dname in FUSE_BWD_SHAPES:
@@ -569,9 +589,11 @@ def main() -> int:
         from tpgan_tpu_torch.config import make_config
         from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
         from tpgan_tpu_torch.entry import entry
+        from tpgan_tpu_torch.examples import conv_ab
         from tpgan_tpu_torch.models import generator as generator_module
         from tpgan_tpu_torch.ops import _build, kernels
         from tpgan_tpu_torch.train.gan_trainer import build_generator, make_synthesize_fn
+        from tpgan_tpu_torch.utils.timing import card_info
     except ImportError as e:
         log(f"FAIL: the tpgan_tpu_torch package is not importable here ({e}); "
             "run from the root of a checkout")
@@ -603,6 +625,7 @@ def main() -> int:
     # ---- 3. each kernel against its plain version ----
     errors = dict.fromkeys(PER_STEP, 0.0)
     check_kernels(dev, errors)
+    check_conv3x3(dev, errors)
 
     # ---- 4. serve: full-size bf16 synthesis, 4 requests of batch 8 ----
     fn, args = entry()
@@ -630,7 +653,8 @@ def main() -> int:
             raise AssertionError(f"request gave {tuple(o.shape)} {o.dtype}")
         if not torch.isfinite(o.float()).all():
             raise AssertionError("request gave non-finite values")
-    want = {"fuse_parts": 3 * REQUESTS, "fuse_parts_bwd": 0, "sym_tv": 0, "sym_tv_bwd": 0}
+    want = {"fuse_parts": 3 * REQUESTS, "fuse_parts_bwd": 0, "sym_tv": 0, "sym_tv_bwd": 0,
+            "conv3x3_bias_lrelu": 0}
     if serve_launches != want:
         raise AssertionError(f"serve launches {serve_launches}, expected {want}")
     log(f"serve: {REQUESTS} requests x batch {BATCH}, bf16, full size, "
@@ -692,6 +716,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_train(dev, tag)
 
+    # ---- 9. conv A/B: K3 against cuDNN's conv + epilogue ----
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    ab_rows = conv_ab.run(dev, log=log)  # one JSON line per shape
+    torch.cuda.synchronize()
+    ab_launches = kernels.launch_counts()
+    calls = sum(r["kernel_calls"] for r in ab_rows)
+    if ab_launches != {**dict.fromkeys(ab_launches, 0), "conv3x3_bias_lrelu": calls}:
+        raise AssertionError(f"conv A/B launches {ab_launches}, expected {calls} conv3x3 only")
+    log(f"conv A/B: {len(ab_rows)} shapes, {calls} kernel calls = launches {tag}")
+    conv_row = ab_rows[0]  # (8, 128, 128, 64, 64): the shape the JAX package calls dominant
+    x, k, b = conv_ab.make_inputs(conv_ab.SHAPES[0], dev)
+    weight = kernels.conv3x3_weight_oihw(k)
+    cudnn_call = lambda: kernels.conv3x3_bias_lrelu_cudnn(x, weight, b, conv_ab.NEGATIVE_SLOPE)
+    with conv_ab.library_settings():  # the A/B's: cuDNN's algorithm is already chosen
+        cudnn_call()
+        profile(cudnn_call, 20, f"cuDNN conv + epilogue {conv_ab.SHAPES[0]} bf16", "call", tag,
+                {"conv": ["fprop", "conv"], "bias add": ["Functor_add"],
+                 "leaky_relu": ["leaky_relu"]})
+    del x, k, b, weight
+
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
         return {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -717,6 +762,20 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     } for name, (src, replaces, batch) in spec.items()]}
+    kernel_line["kernels"].append({
+        "name": "conv3x3_bias_lrelu",
+        "route": "cuda",
+        "source": "tpgan_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "tpgan_tpu/ops/pallas_kernels.py:260",
+        # launches on its one path, the conv A/B
+        "launches": ab_launches["conv3x3_bias_lrelu"],
+        "max_abs_err": errors["conv3x3_bias_lrelu"],
+        "ms": conv_row["kernel_us"] / 1e3,
+        "plain_ms": conv_row["plain_us"] / 1e3,
+        "bound_ms": conv_row["bound_us"] / 1e3,
+        "bound_by": conv_row["bound_by"],
+        "library_ms": conv_row["cudnn_us"] / 1e3,
+    })
     log(json.dumps(kernel_line))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {

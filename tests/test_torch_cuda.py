@@ -14,6 +14,7 @@ from tpgan_tpu_torch.config import make_config
 from tpgan_tpu_torch.ops import kernels
 from tpgan_tpu_torch.ops.geometry import PART_GEOMETRY, PART_NAMES
 from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+from tpgan_tpu_torch.examples import conv_ab
 from tpgan_tpu_torch.train.gan_trainer import (
     build_generator,
     create_gan_state,
@@ -164,6 +165,53 @@ def test_small_bf16_train_step_goes_through_every_kernel(cuda):
                           torch.Generator(device=cuda).manual_seed(0))
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fuse_parts": 7, "fuse_parts_bwd": 2,
-                                       "sym_tv": 1, "sym_tv_bwd": 1}
+                                       "sym_tv": 1, "sym_tv_bwd": 1, "conv3x3_bias_lrelu": 0}
     assert all(torch.isfinite(v.float()) for v in metrics.values())
     assert state.step == 1
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 9, 13, 5, 7), torch.float32),  # odd sizes: the guarded scalar loads
+    ((2, 9, 13, 5, 7), torch.bfloat16),
+    ((2, 16, 16, 8, 16), torch.bfloat16),  # the JAX test's shape: the 16-byte copies
+    ((2, 16, 16, 8, 16), torch.float32),
+    ((3, 17, 19, 24, 40), torch.bfloat16),  # 16-byte copies with M, N and K tails
+    ((3, 17, 19, 24, 40), torch.float32),
+    ((1, 1, 1, 8, 8), torch.bfloat16),  # every tap but the centre in the halo
+    *((s, torch.bfloat16) for s in conv_ab.SHAPES),
+    (conv_ab.SHAPES[0], torch.float32),
+])
+def test_conv3x3_kernel_equals_plain_version(cuda, shape, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    b_, h, w, cin, cout = shape
+    x, k, b = conv_ab.make_inputs(shape, cuda, dtype)
+    x[b_ - 1, h // 2, 0, cin - 1] = float("nan")  # a left-edge pixel
+    before = kernels.launch_counts()["conv3x3_bias_lrelu"]
+    got = kernels.conv3x3_bias_lrelu(x, k, b, conv_ab.NEGATIVE_SLOPE)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv3x3_bias_lrelu"] == before + 1
+    rows = min(h // 2 + 1, h - 1) - max(h // 2 - 1, 0) + 1
+    assert int(got.isnan().sum()) == rows * min(2, w) * cout  # the pixel's neighbourhood
+    conv_ab.check_against_plain(
+        got, kernels.conv3x3_bias_lrelu_plain(x, k, b, conv_ab.NEGATIVE_SLOPE))
+
+
+def test_conv3x3_kernel_takes_an_f32_bias_beside_bf16(cuda):
+    x, k, b = conv_ab.make_inputs((2, 16, 16, 8, 16), cuda, torch.bfloat16)
+    b32 = b.float() + 1e-3  # not representable in bf16
+    conv_ab.check_against_plain(kernels.conv3x3_bias_lrelu(x, k, b32, 0.2),
+                                kernels.conv3x3_bias_lrelu_plain(x, k, b32, 0.2))
+
+
+def test_conv3x3_rejects_instead_of_falling_back(cuda):
+    x, k, b = conv_ab.make_inputs((2, 9, 13, 5, 7), cuda, torch.float32)
+    before = kernels.launch_counts()["conv3x3_bias_lrelu"]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv3x3_bias_lrelu(x.transpose(1, 2).contiguous().transpose(1, 2), k, b)
+    with pytest.raises(TypeError, match="kernel"):
+        kernels.conv3x3_bias_lrelu(x, k.bfloat16(), b)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernels.conv3x3_bias_lrelu(x.half(), k.half(), b)
+    with pytest.raises(ValueError, match="forward only"):
+        kernels.conv3x3_bias_lrelu(x.clone().requires_grad_(), k, b)
+    assert kernels.launch_counts()["conv3x3_bias_lrelu"] == before

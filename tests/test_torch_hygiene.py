@@ -12,6 +12,7 @@ import torch
 
 from tpgan_tpu_torch.config import make_config
 from tpgan_tpu_torch.entry import entry, train_entry
+from tpgan_tpu_torch.examples import conv_ab
 from tpgan_tpu_torch.train.gan_trainer import build_generator, create_gan_state
 
 torch.set_num_threads(1)
@@ -69,6 +70,8 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         create_gan_state(make_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        conv_ab.main([])
 
 
 def test_padded_channel_layout_is_refused():

@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpgan_tpu_torch"
-SOURCES = ("fuse_parts.cu", "sym_tv.cu")
+SOURCES = ("fuse_parts.cu", "sym_tv.cu", "conv3x3.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

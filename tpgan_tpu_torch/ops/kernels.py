@@ -30,10 +30,23 @@ forward and backward (source: ``tpgan_tpu_torch/csrc/sym_tv.cu``).
   the backward is one elementwise pass that reads the upstream scalars
   from device memory and takes sign(0) = +1, JAX's abs rule.
 
-Layout: contiguous NCHW, as the port's modules emit it; f32 and bf16. A
-CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises (wrong dtype, layout, build or launch error) — there is no
-fallback. No wrapper syncs with the host or copies to it.
+``conv3x3_bias_lrelu`` — the fused 3x3 conv + bias + LeakyReLU, forward
+only (source: ``tpgan_tpu_torch/csrc/conv3x3.cu``).
+
+* Replaces ``conv3x3_bias_lrelu_pallas`` (body ``_make_conv3x3_kernel``),
+  which no model calls: its one path is the A/B against the library conv,
+  ``tpgan_tpu_torch/examples/conv_ab.py``.
+* Bound at the A/B's dominant shape (8, 128, 128, 64 -> 64) bf16: x read
+  and y written once, 33.6 MB (10.0 us), against 9.66 GFLOP (9.8 us).
+* Design: an implicit GEMM (M = B*H*W, N = Cout, K = 9*Cin) that reads the
+  halo as zeros (no padded copy), bf16 on tensor cores (``mma.sync``), f32
+  on CUDA cores; bias and LeakyReLU on the f32 accumulators.
+
+Layout: contiguous NCHW for K1 and K2, as the port's modules emit it; NHWC
+x and HWIO weight for K3, the JAX function's. f32 and bf16. A CPU tensor
+runs the plain version; a CUDA tensor launches the kernel or raises (wrong
+dtype, layout, build or launch error) — there is no fallback. No wrapper
+syncs with the host or copies to it.
 """
 
 from __future__ import annotations
@@ -43,16 +56,20 @@ import functools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tpgan_tpu_torch.ops import _build
 from tpgan_tpu_torch.ops.geometry import CANVAS_SIZE, PART_GEOMETRY, PART_NAMES
 
 # Launches of each kernel in this process. Only the CUDA launch paths add
 # to them, so a run can show that the main path went through the kernels.
-_LAUNCHES = dict.fromkeys(("fuse_parts", "fuse_parts_bwd", "sym_tv", "sym_tv_bwd"), 0)
+_LAUNCHES = dict.fromkeys(
+    ("fuse_parts", "fuse_parts_bwd", "sym_tv", "sym_tv_bwd", "conv3x3_bias_lrelu"), 0
+)
 
 FUSE_SOURCE = "fuse_parts.cu"
 SYM_TV_SOURCE = "sym_tv.cu"
+CONV3X3_SOURCE = "conv3x3.cu"
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -66,14 +83,14 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _check_launchable(name: str, tensors: Sequence[torch.Tensor]) -> str:
-    """The entry-point suffix for the tensors' dtype; raises on a dtype or
-    layout the kernel does not take."""
+def _check_launchable(name: str, tensors: Sequence[torch.Tensor], layout: str = "NCHW") -> str:
+    """The entry-point suffix for the first tensor's dtype; raises on a
+    dtype or layout the kernel does not take."""
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got {dtype}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} kernel takes contiguous NCHW tensors")
+        raise ValueError(f"{name} kernel takes contiguous {layout} tensors")
     return _DTYPE_SUFFIX[dtype]
 
 
@@ -397,3 +414,109 @@ def symmetry_tv_losses(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     tensor; differentiable, with JAX's gradient at ties."""
     _check_image(x)
     return _SymmetryTV.apply(x)
+
+
+# --------------------------------------------------------------------------
+# conv3x3 + bias + LeakyReLU
+# --------------------------------------------------------------------------
+
+def _check_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
+    """Raise unless x is (B, H, W, Cin), kernel (3, 3, Cin, Cout) of x's
+    dtype and bias (Cout,), every size at least 1, all on one device."""
+    if x.dim() != 4 or kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, x.shape[3]):
+        raise ValueError(f"conv3x3_bias_lrelu takes NHWC x and (3, 3, Cin, Cout) kernel, got "
+                         f"{tuple(x.shape)} and {tuple(kernel.shape)}")
+    if tuple(bias.shape) != (kernel.shape[3],):
+        raise ValueError(f"bias must be ({kernel.shape[3]},), got {tuple(bias.shape)}")
+    if min(x.shape) < 1 or kernel.shape[3] < 1:
+        raise ValueError(f"conv3x3_bias_lrelu takes sizes >= 1, got x {tuple(x.shape)}, "
+                         f"Cout {kernel.shape[3]}")
+    if kernel.dtype != x.dtype:
+        # the Pallas kernel does not cast either (the XLA form does)
+        raise TypeError(f"conv3x3_bias_lrelu: x is {x.dtype} but the kernel {kernel.dtype}")
+    if kernel.device != x.device or bias.device != x.device:
+        raise ValueError("x, kernel and bias must be on one device")
+
+
+def conv3x3_bias_lrelu_plain(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, negative_slope: float = 0.01
+) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain PyTorch, independent of any
+    conv library: nine shifted f32 matmuls over a zero-padded f32 copy of
+    x, then the f32 bias and LeakyReLU (NaN stays NaN), cast to x's dtype."""
+    b, h, w, _ = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    k = kernel.float()
+    acc = torch.zeros((b, h, w, kernel.shape[3]), dtype=torch.float32, device=x.device)
+    for dh in range(3):
+        for dw in range(3):
+            acc += xp[:, dh : dh + h, dw : dw + w, :] @ k[dh, dw]
+    y = acc + bias.float()
+    return torch.where(y >= 0, y, negative_slope * y).to(x.dtype)
+
+
+def conv3x3_weight_oihw(kernel: torch.Tensor) -> torch.Tensor:
+    """The HWIO kernel as an OIHW weight in channels-last memory, the
+    layout cuDNN takes beside a channels-last input (one copy)."""
+    return kernel.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+
+def conv3x3_bias_lrelu_cudnn(
+    x: torch.Tensor, weight_oihw: torch.Tensor, bias: torch.Tensor, negative_slope: float = 0.01
+) -> torch.Tensor:
+    """The library call of the same function, a yardstick of time and never
+    on the port's path: ``F.conv2d`` (cuDNN on the card) on x's zero-copy
+    channels-last NCHW view with the bias, then ``F.leaky_relu`` in place;
+    returns the NHWC view. In bf16 the conv rounds before the epilogue, so
+    it matches the kernel only loosely."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight_oihw, bias.to(x.dtype), padding=1)
+    return F.leaky_relu(y, negative_slope, inplace=True).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv3x3_lib() -> ctypes.CDLL:
+    lib = _build.load(CONV3X3_SOURCE)
+    for suffix in _DTYPE_SUFFIX.values():
+        fn = getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}")
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_conv3x3(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, negative_slope: float
+) -> torch.Tensor:
+    suffix = _check_launchable("conv3x3_bias_lrelu", [x, kernel, bias], layout="NHWC/HWIO")
+    if bias.dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"conv3x3_bias_lrelu kernel takes a float32 or bfloat16 bias, got "
+                        f"{bias.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        raise ValueError("conv3x3_bias_lrelu kernel is forward only: an input requires grad")
+    b, h, w, cin = x.shape
+    cout = kernel.shape[3]
+    if b * h * w * max(cin, cout) >= 2**31 or 9 * cin * cout >= 2**31:
+        raise ValueError(f"conv3x3_bias_lrelu kernel uses 32-bit indices; x {tuple(x.shape)} "
+                         f"-> Cout {cout} is too large")
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    fn = getattr(_conv3x3_lib(), f"tpgan_conv3x3_bias_lrelu_{suffix}")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                 int(bias.dtype == torch.float32), y.data_ptr(), b, h, w, cin, cout,
+                 float(negative_slope), _stream())
+    _raise_on(err, "conv3x3_bias_lrelu")
+    _LAUNCHES["conv3x3_bias_lrelu"] += 1
+    return y
+
+
+def conv3x3_bias_lrelu(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, negative_slope: float = 0.01
+) -> torch.Tensor:
+    """3x3, stride 1, SAME (zero halo) conv of NHWC ``x`` with the HWIO
+    ``kernel``, f32 accumulation, then ``+ bias`` and LeakyReLU with
+    ``negative_slope``, in x's dtype — the CUDA kernel on a CUDA tensor,
+    the plain version on a CPU tensor. Forward only."""
+    _check_conv3x3(x, kernel, bias)
+    if _dispatch(x, "conv3x3_bias_lrelu"):
+        return _launch_conv3x3(x, kernel, bias, negative_slope)
+    return conv3x3_bias_lrelu_plain(x, kernel, bias, negative_slope)
