@@ -14,12 +14,17 @@ Phases, each of which exits non-zero on failure:
                  backward ``torch.equal`` (NaN cases included), the
                  symmetry+TV forward within rtol 1e-5 and bit-identical
                  over two runs, its backward within rtol 1e-6 on inputs
-                 with planted ties; the conv3x3+bias+LeakyReLU (K3) at the
-                 three A/B shapes in bf16, the first in f32, the JAX test's
-                 shape and an odd one, a NaN planted in x, bf16 within one
-                 bf16 ulp (2^-7 |want| + 1e-6 max|want|), f32 within
-                 1e-5 max|want|; a CUDA tensor the kernel does not take
-                 (dtype, mixed dtypes, layout, requires grad) raises;
+                 with planted ties; the fuse forward at batch 8 and 128;
+                 the conv3x3+bias+LeakyReLU (K3) at the three A/B shapes
+                 in bf16 (the TMA + wgmma kernel), its tail shapes (W 96
+                 and 8, H 1, B 1, Cin 72, Cout 72 and 200, an f32 bias),
+                 the A/B shapes through the mma_sync kernel, the first in
+                 f32, the JAX test's shape and an odd one (mma_sync), each
+                 asserting the kernel variant it launched, a NaN planted in
+                 x, bf16 within one bf16 ulp (2^-7 |want| + 1e-6
+                 max|want|), f32 within 1e-5 max|want|; a CUDA tensor the
+                 kernel does not take (dtype, mixed dtypes, layout,
+                 requires grad) raises;
 4. serve       — the full-size (fm=1.0, deconv) generator in bf16 from a
                  seeded init answers 4 requests of batch 8 through
                  ``build_generator`` / ``make_synthesize_fn``; 3 fuses per
@@ -47,10 +52,12 @@ Phases, each of which exits non-zero on failure:
                  with peak memory; profiler breakdowns of the batch-8
                  forward and of one batch-16 train step;
 9. conv A/B    — ``tpgan_tpu_torch.examples.conv_ab``, K3's one path: the
-                 kernel against cuDNN's conv + epilogue and the plain
-                 version at the three head-area shapes, bf16; one JSON line
-                 per shape; K3's launches equal the calls the A/B made; a
-                 profile of the cuDNN call at the first shape.
+                 kernel (``tma_wgmma``) against the mma_sync kernel (in
+                 turns), cuDNN's conv + epilogue and the plain version at
+                 the three head-area shapes, bf16; one JSON line per shape;
+                 K3's launches equal the calls the A/B made, per variant; a
+                 profile of one kernel call and of the cuDNN call at the
+                 first shape.
 
 Counts are set to 0 just before each path (serve, train, conv A/B) is driven and
 read just after; launches made to compare a kernel with its plain version
@@ -82,11 +89,21 @@ TRAIN_STEPS = 5
 TRAIN_F32_BATCH = 8
 PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1,
             "conv3x3_bias_lrelu": 0}
-# K3 on the card: (B, H, W, Cin, Cout, dtype name) beside the three A/B
-# shapes in bf16 — the dominant one in f32, the JAX test's shape, odd sizes
-CONV_CHECKS = ((8, 128, 128, 64, 64, "float32"), (2, 16, 16, 8, 16, "float32"),
-               (2, 16, 16, 8, 16, "bfloat16"), (2, 9, 13, 5, 7, "float32"),
-               (2, 9, 13, 5, 7, "bfloat16"))
+# K3 on the card: (B, H, W, Cin, Cout, dtype name, variant) beside the
+# three A/B shapes in bf16 — the TMA + wgmma kernel's tails (W 96: the last
+# column tile runs past W; W 8; H 1; B 1; Cin 72: a zero-filled chunk tail;
+# Cout 72 and 200: N tails), the dominant shape in f32, the JAX test's
+# shape, odd sizes (mma_sync)
+CONV_CHECKS = ((2, 6, 96, 64, 64, "bfloat16", "tma_wgmma"),
+               (2, 20, 8, 64, 64, "bfloat16", "tma_wgmma"),
+               (2, 1, 40, 64, 64, "bfloat16", "tma_wgmma"),
+               (1, 32, 32, 128, 128, "bfloat16", "tma_wgmma"),
+               (2, 16, 16, 72, 64, "bfloat16", "tma_wgmma"),
+               (2, 16, 16, 64, 72, "bfloat16", "tma_wgmma"),
+               (2, 12, 12, 32, 200, "bfloat16", "tma_wgmma"),
+               (8, 128, 128, 64, 64, "float32", "f32"), (2, 16, 16, 8, 16, "float32", "f32"),
+               (2, 16, 16, 8, 16, "bfloat16", "tma_wgmma"), (2, 9, 13, 5, 7, "float32", "f32"),
+               (2, 9, 13, 5, 7, "bfloat16", "mma_sync"))
 F32_MAX_DIFF = 1e-6
 # bf16 keeps 8 mantissa bits: the bf16 serving output may differ from the
 # f32 one by a few percent of the output's range (the CPU test's bound)
@@ -158,22 +175,24 @@ def check_kernels(dev, errors):
 
     from tpgan_tpu_torch.ops import kernels
 
-    for c, dname in FUSE_SHAPES:
+    for batch, c, dname in [(BATCH, *s) for s in FUSE_SHAPES] + [(128, 64, "bfloat16")]:
         dtype = getattr(torch, dname)
         for nan in (False, True):
-            parts = make_parts(BATCH, c, dtype, seed=c, device=dev)
+            parts = make_parts(batch, c, dtype, seed=c, device=dev)
             if nan:
                 parts[2][0, 1, 3, 4] = float("nan")
-                parts[1][BATCH - 1, 0, 39, 39] = float("nan")
+                parts[1][batch - 1, 0, 39, 39] = float("nan")
             got = kernels.fuse_parts(*parts)
             want = kernels.fuse_parts_plain(*parts)
             torch.cuda.synchronize()
             if not same(got, want):
-                raise AssertionError(f"fuse_parts kernel != plain at C={c} {dname} nan={nan}")
+                raise AssertionError(f"fuse_parts kernel != plain at B={batch} C={c} {dname} "
+                                     f"nan={nan}")
             if nan and int(got.isnan().sum()) != 2:
                 raise AssertionError("fuse_parts kernel lost a NaN")
             errors["fuse_parts"] = max(errors["fuse_parts"], max_err(got, want))
-            log(f"kernel check: fuse_parts B={BATCH} C={c} {dname} nan={nan}: equal")
+            log(f"kernel check: fuse_parts B={batch} C={c} {dname} nan={nan}: equal")
+            del parts, got, want
 
     for c, dname in FUSE_BWD_SHAPES:
         dtype = getattr(torch, dname)
@@ -238,8 +257,9 @@ def check_kernels(dev, errors):
 
 
 def check_conv3x3(dev, errors):
-    """Phase 3, K3: the kernel against its plain version, a NaN planted in
-    x; the refusals."""
+    """Phase 3, K3: each kernel variant against its plain version, a NaN
+    planted in x, asserting through the per-variant counts which kernel
+    each shape launched; an f32 bias beside bf16; the refusals."""
     import torch
 
     from tpgan_tpu_torch.examples import conv_ab
@@ -247,21 +267,47 @@ def check_conv3x3(dev, errors):
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     slope = conv_ab.NEGATIVE_SLOPE
-    for *shape, dname in [(*s, "bfloat16") for s in conv_ab.SHAPES] + list(CONV_CHECKS):
+    cases = ([(*s, "bfloat16", "tma_wgmma", None) for s in conv_ab.SHAPES]
+             + [(*c, None) for c in CONV_CHECKS]
+             + [(*s, "bfloat16", "mma_sync", "mma_sync") for s in conv_ab.SHAPES])
+    for *shape, dname, variant, forced in cases:
         x, k, b = conv_ab.make_inputs(tuple(shape), dev, getattr(torch, dname))
         x[0, shape[1] // 2, shape[2] // 2, 0] = float("nan")
-        got = kernels.conv3x3_bias_lrelu(x, k, b, slope)
+        before = kernels.conv3x3_variant_counts()
+        if forced:
+            got = kernels._launch_conv3x3(x, k, b, slope, variant=forced)
+        else:
+            got = kernels.conv3x3_bias_lrelu(x, k, b, slope)
         want = kernels.conv3x3_bias_lrelu_plain(x, k, b, slope)
         torch.cuda.synchronize()
+        ran = {v: n - before[v] for v, n in kernels.conv3x3_variant_counts().items()
+               if n != before[v]}
+        if ran != {variant: 1}:
+            raise AssertionError(f"conv3x3 {shape} {dname}: launched {ran}, expected {variant}")
         err = conv_ab.check_against_plain(got, want)
-        if int(got.isnan().sum()) != 9 * shape[4]:
+        h, w = shape[1:3]
+        hood = (min(h // 2 + 1, h - 1) - max(h // 2 - 1, 0) + 1) * \
+            (min(w // 2 + 1, w - 1) - max(w // 2 - 1, 0) + 1)
+        if int(got.isnan().sum()) != hood * shape[4]:
             raise AssertionError(f"conv3x3 {shape} {dname}: {int(got.isnan().sum())} NaNs, "
-                                 f"expected the pixel's 3x3 neighbourhood, {9 * shape[4]}")
+                                 f"expected the pixel's 3x3 neighbourhood, {hood * shape[4]}")
         errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
-        log(f"kernel check: conv3x3_bias_lrelu {tuple(shape)} {dname}: max|kernel - plain| "
-            f"{err:.3e} of max|plain| {float(want.nan_to_num(0).float().abs().max()):.4g}, "
-            f"within limits; the planted NaN covers its 3x3 neighbourhood")
+        log(f"kernel check: conv3x3_bias_lrelu {tuple(shape)} {dname} [{variant}]: "
+            f"max|kernel - plain| {err:.3e} of max|plain| "
+            f"{float(want.nan_to_num(0).float().abs().max()):.4g}, within limits; the planted "
+            f"NaN covers its 3x3 neighbourhood")
         del x, k, b, got, want
+
+    x, k, b = conv_ab.make_inputs((2, 16, 16, 64, 72), dev, torch.bfloat16)
+    b32 = b.float() + 1e-3  # not representable in bf16
+    before = kernels.conv3x3_variant_counts()["tma_wgmma"]
+    err = conv_ab.check_against_plain(kernels.conv3x3_bias_lrelu(x, k, b32, slope),
+                                      kernels.conv3x3_bias_lrelu_plain(x, k, b32, slope))
+    if kernels.conv3x3_variant_counts()["tma_wgmma"] != before + 1:
+        raise AssertionError("conv3x3 with an f32 bias did not launch tma_wgmma")
+    errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
+    log(f"kernel check: conv3x3_bias_lrelu (2, 16, 16, 64, 72) bf16 with an f32 bias "
+        f"[tma_wgmma]: max|kernel - plain| {err:.3e}, within limits")
 
     x, k, b = conv_ab.make_inputs((2, 9, 13, 5, 7), dev, torch.float32)
     for what, exc, call in (
@@ -570,7 +616,7 @@ def profile(fn, iters, what, unit, tag, names):
         shares.append(f"{label} {us / iters:.1f} us/{unit} ({us / busy_us:.2%} of busy)")
     log(f"profile: {what}, {iters} {unit}s: wall {wall_us / iters / 1e3:.2f} ms/{unit}, "
         f"device busy {busy_us / iters / 1e3:.2f} ms/{unit} ({busy_us / wall_us:.0%}; idle "
-        f"{1 - busy_us / wall_us:.0%}), {len(kern) // iters} kernels/{unit}; "
+        f"{1 - busy_us / wall_us:.0%}), {round(len(kern) / iters)} kernels/{unit}; "
         f"{'; '.join(shares)} {tag}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {us / iters / 1e3:8.3f} ms/{unit}  {name[:110]}")
@@ -722,14 +768,25 @@ def main() -> int:
     ab_rows = conv_ab.run(dev, log=log)  # one JSON line per shape
     torch.cuda.synchronize()
     ab_launches = kernels.launch_counts()
+    ab_variants = kernels.conv3x3_variant_counts()
     calls = sum(r["kernel_calls"] for r in ab_rows)
-    if ab_launches != {**dict.fromkeys(ab_launches, 0), "conv3x3_bias_lrelu": calls}:
-        raise AssertionError(f"conv A/B launches {ab_launches}, expected {calls} conv3x3 only")
-    log(f"conv A/B: {len(ab_rows)} shapes, {calls} kernel calls = launches {tag}")
+    mma_calls = sum(r["mma_sync_calls"] for r in ab_rows)
+    if ab_launches != {**dict.fromkeys(ab_launches, 0), "conv3x3_bias_lrelu": calls + mma_calls}:
+        raise AssertionError(f"conv A/B launches {ab_launches}, expected {calls + mma_calls} "
+                             "conv3x3 only")
+    if ab_variants != {"tma_wgmma": calls, "mma_sync": mma_calls, "f32": 0}:
+        raise AssertionError(f"conv A/B variants {ab_variants}: expected {calls} tma_wgmma "
+                             f"and {mma_calls} mma_sync")
+    log(f"conv A/B: {len(ab_rows)} shapes, {calls} tma_wgmma + {mma_calls} mma_sync calls = "
+        f"launches {ab_variants} {tag}")
     conv_row = ab_rows[0]  # (8, 128, 128, 64, 64): the shape the JAX package calls dominant
     x, k, b = conv_ab.make_inputs(conv_ab.SHAPES[0], dev)
     weight = kernels.conv3x3_weight_oihw(k)
     cudnn_call = lambda: kernels.conv3x3_bias_lrelu_cudnn(x, weight, b, conv_ab.NEGATIVE_SLOPE)
+    kernel_call = lambda: kernels.conv3x3_bias_lrelu(x, k, b, conv_ab.NEGATIVE_SLOPE)
+    kernel_call()
+    profile(kernel_call, 20, f"K3 tma_wgmma {conv_ab.SHAPES[0]} bf16", "call", tag,
+            {"K3": ["conv3x3_tma_wgmma_kernel"]})
     with conv_ab.library_settings():  # the A/B's: cuDNN's algorithm is already chosen
         cudnn_call()
         profile(cudnn_call, 20, f"cuDNN conv + epilogue {conv_ab.SHAPES[0]} bf16", "call", tag,

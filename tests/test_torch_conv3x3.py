@@ -145,3 +145,56 @@ def test_conv_ab_bounds_at_the_ab_shapes():
         us, got_by = conv_ab.bound(shape)
         assert got_by == by
         assert us == pytest.approx(max(nbytes / 3.35e12, flops / 989e12) * 1e6)
+
+
+@pytest.mark.parametrize("shape,rows,cols,bn,tiles_m,tiles_n", [
+    ((8, 128, 128, 64, 64), 1, 128, 64, 8 * 128, 1),
+    ((8, 64, 64, 128, 128), 2, 64, 128, 8 * 32, 1),
+    ((32, 32, 32, 256, 256), 4, 32, 256, 32 * 8, 1),
+])
+def test_conv3x3_plan_gives_the_ab_shapes_tma_wgmma(shape, rows, cols, bn, tiles_m, tiles_n):
+    plan = kernels.conv3x3_plan(*shape, torch.bfloat16)
+    assert plan == ("tma_wgmma", rows, cols, bn, tiles_m, tiles_n)
+    assert plan.box == (64, cols, rows, 1)
+
+
+@pytest.mark.parametrize("shape,dtype,x_mod,w_mod,variant", [
+    ((2, 9, 13, 5, 7), torch.bfloat16, 0, 0, "mma_sync"),  # Cin, Cout not multiples of 8
+    ((2, 16, 16, 64, 60), torch.bfloat16, 0, 0, "mma_sync"),  # Cout alone
+    ((8, 128, 128, 64, 64), torch.bfloat16, 2, 0, "mma_sync"),  # a misaligned x
+    ((8, 128, 128, 64, 64), torch.bfloat16, 0, 8, "mma_sync"),  # a misaligned weight
+    ((8, 128, 128, 64, 64), torch.float32, 0, 0, "f32"),  # f32: the CUDA-core kernel
+    ((2, 9, 13, 5, 7), torch.float32, 0, 0, "f32"),
+])
+def test_conv3x3_plan_keeps_the_other_cases_off_tma(shape, dtype, x_mod, w_mod, variant):
+    plan = kernels.conv3x3_plan(*shape, dtype, x_mod, w_mod)
+    b, h, w, _, cout = shape
+    bm = 128 if dtype == torch.bfloat16 else 64
+    assert plan == (variant, 0, 0, 64, -(-b * h * w // bm), -(-cout // 64))
+
+
+def test_conv3x3_plan_boxes_stay_within_tma_limits():
+    """Every tma_wgmma plan over a sweep of image sizes: a 128-pixel tile
+    of a power-of-two width that fits the image (up to 128), boxes of at
+    most 256 per dimension and 128 bytes in the inner one, tiles that cover
+    the image and the channels."""
+    for h in (1, 2, 7, 32, 100, 513):
+        for w in (1, 3, 8, 31, 64, 96, 127, 128, 129, 300, 4096):
+            for cout in (8, 64, 72, 256, 264):
+                plan = kernels.conv3x3_plan(2, h, w, 16, cout, torch.bfloat16)
+                assert plan.variant == "tma_wgmma"
+                assert plan.rows * plan.cols == 128 and plan.cols & (plan.cols - 1) == 0
+                assert plan.cols <= w or plan.cols == 1
+                assert max(plan.box) <= kernels.TMA_BOX_MAX
+                assert plan.box[0] * 2 <= kernels.TMA_SWIZZLE_BYTES
+                tiles_h, tiles_w = -(-h // plan.rows), -(-w // plan.cols)
+                assert plan.tiles_m == 2 * tiles_h * tiles_w
+                assert plan.tiles_n * plan.bn >= cout > (plan.tiles_n - 1) * plan.bn
+
+
+def test_conv3x3_plan_picks_the_narrowest_compiled_n_tile():
+    plans = [kernels.conv3x3_plan(1, 8, 8, 16, c, torch.bfloat16)
+             for c in (8, 64, 72, 128, 200, 256, 264, 520)]
+    assert [p.bn for p in plans] == [64, 64, 128, 128, 256, 256, 256, 256]
+    assert [p.tiles_n for p in plans] == [1, 1, 1, 1, 1, 1, 2, 3]
+    assert all(p.bn in kernels.CONV3X3_BN for p in plans)

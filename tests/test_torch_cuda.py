@@ -58,6 +58,46 @@ def test_fuse_kernel_equals_plain_version(cuda, c, dtype):
     assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
 
 
+@pytest.mark.parametrize("b,c,dtype,bands", [
+    (1, 64, torch.bfloat16, 16),  # B = 1
+    (3, 5, torch.bfloat16, 16),  # B*C odd: the last block takes one plane
+    (1, 3, torch.float32, 16),
+    (64, 3, torch.bfloat16, 8),  # each row-band split the plan makes
+    (8, 64, torch.bfloat16, 4),
+    (16, 64, torch.bfloat16, 2),
+    (64, 64, torch.bfloat16, 1),
+    (8, 64, torch.float32, 2),
+])
+def test_fuse_kernel_takes_any_plane_count(cuda, b, c, dtype, bands):
+    """Plane counts and row-band splits; NaN, an exact tie and zeros
+    planted (``_parts``)."""
+    plan = kernels.fuse_parts_plan(b * c, dtype)
+    assert plan.bands == bands and plan.planes_per_block == (2 if dtype == torch.bfloat16 else 1)
+    parts = _parts(b, c, dtype, cuda, seed=b + c)
+    got = kernels.fuse_parts(*parts)
+    want = kernels.fuse_parts_plain(*parts)
+    torch.cuda.synchronize()
+    assert int(got.isnan().sum()) == 1
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fuse_kernel_stages_misaligned_parts(cuda, dtype):
+    """A part that starts one element past a 16-byte boundary takes the
+    element copies into shared memory; the result is the same."""
+    parts = _parts(2, 8, dtype, cuda, seed=4)
+    shifted = torch.empty(parts[1].numel() + 1, dtype=dtype, device=cuda)[1:]
+    shifted.copy_(parts[1].reshape(-1))
+    parts[1] = shifted.view(parts[1].shape)
+    assert parts[1].data_ptr() % 16 != 0
+    got = kernels.fuse_parts(*parts)
+    want = kernels.fuse_parts_plain(*parts)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
 def test_fuse_kernel_rejects_instead_of_falling_back(cuda):
     parts = _parts(2, 3, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -170,37 +210,89 @@ def test_small_bf16_train_step_goes_through_every_kernel(cuda):
     assert state.step == 1
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((2, 9, 13, 5, 7), torch.float32),  # odd sizes: the guarded scalar loads
-    ((2, 9, 13, 5, 7), torch.bfloat16),
-    ((2, 16, 16, 8, 16), torch.bfloat16),  # the JAX test's shape: the 16-byte copies
-    ((2, 16, 16, 8, 16), torch.float32),
-    ((3, 17, 19, 24, 40), torch.bfloat16),  # 16-byte copies with M, N and K tails
-    ((3, 17, 19, 24, 40), torch.float32),
-    ((1, 1, 1, 8, 8), torch.bfloat16),  # every tap but the centre in the halo
-    *((s, torch.bfloat16) for s in conv_ab.SHAPES),
-    (conv_ab.SHAPES[0], torch.float32),
-])
-def test_conv3x3_kernel_equals_plain_version(cuda, shape, dtype):
+def _check_conv3x3(shape, dtype, device, call, variant):
+    """K3 through ``call(x, k, b)`` against its plain version, a NaN planted
+    at a left-edge pixel; asserts one launch, of ``variant``."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     b_, h, w, cin, cout = shape
-    x, k, b = conv_ab.make_inputs(shape, cuda, dtype)
+    x, k, b = conv_ab.make_inputs(shape, device, dtype)
     x[b_ - 1, h // 2, 0, cin - 1] = float("nan")  # a left-edge pixel
     before = kernels.launch_counts()["conv3x3_bias_lrelu"]
-    got = kernels.conv3x3_bias_lrelu(x, k, b, conv_ab.NEGATIVE_SLOPE)
+    variants = kernels.conv3x3_variant_counts()
+    got = call(x, k, b)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["conv3x3_bias_lrelu"] == before + 1
+    assert kernels.conv3x3_variant_counts() == {**variants, variant: variants[variant] + 1}
     rows = min(h // 2 + 1, h - 1) - max(h // 2 - 1, 0) + 1
     assert int(got.isnan().sum()) == rows * min(2, w) * cout  # the pixel's neighbourhood
     conv_ab.check_against_plain(
         got, kernels.conv3x3_bias_lrelu_plain(x, k, b, conv_ab.NEGATIVE_SLOPE))
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 9, 13, 5, 7), torch.float32),  # odd sizes
+    ((2, 9, 13, 5, 7), torch.bfloat16),  # mma_sync's guarded scalar loads
+    ((2, 16, 16, 8, 16), torch.bfloat16),  # the JAX test's shape: tma_wgmma, Cin < 64
+    ((2, 16, 16, 8, 16), torch.float32),
+    ((3, 17, 19, 24, 40), torch.bfloat16),  # tma_wgmma with H, W, N and K tails
+    ((3, 17, 19, 24, 40), torch.float32),
+    ((1, 1, 1, 8, 8), torch.bfloat16),  # every tap but the centre in the halo
+    *((s, torch.bfloat16) for s in conv_ab.SHAPES),
+    (conv_ab.SHAPES[0], torch.float32),
+])
+def test_conv3x3_kernel_equals_plain_version(cuda, shape, dtype):
+    variant = kernels.conv3x3_plan(*shape, dtype).variant
+    _check_conv3x3(shape, dtype, cuda, lambda x, k, b: kernels.conv3x3_bias_lrelu(
+        x, k, b, conv_ab.NEGATIVE_SLOPE), variant)
+
+
+@pytest.mark.parametrize("shape,bn", [
+    ((2, 6, 96, 64, 64), 64),  # W = 96: the second column tile runs past W
+    ((2, 20, 8, 64, 64), 64),  # W = 8: 16 x 8 tiles, the second past H
+    ((2, 1, 40, 64, 64), 64),  # H = 1: 4 x 32 tiles, three rows past H
+    ((1, 32, 32, 128, 128), 128),  # B = 1
+    ((2, 16, 16, 72, 64), 64),  # Cin = 72: TMA zero-fills the second chunk's tail
+    ((2, 16, 16, 64, 72), 128),  # Cout = 72: an N tail, the store clips it
+    ((2, 12, 12, 32, 200), 256),  # one N tile of 256 over 200 channels
+    ((2, 8, 8, 32, 264), 256),  # two N tiles, the second 8 of 256 wide
+    ((4, 32, 32, 256, 256), 256),
+])
+def test_conv3x3_tma_wgmma_equals_plain_version(cuda, shape, bn):
+    plan = kernels.conv3x3_plan(*shape, torch.bfloat16)
+    assert (plan.variant, plan.bn) == ("tma_wgmma", bn)
+    _check_conv3x3(shape, torch.bfloat16, cuda, lambda x, k, b: kernels.conv3x3_bias_lrelu(
+        x, k, b, conv_ab.NEGATIVE_SLOPE), "tma_wgmma")
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8, 16), (3, 17, 19, 24, 40), conv_ab.SHAPES[0]])
+def test_conv3x3_mma_sync_equals_plain_version(cuda, shape):
+    """The general bf16 kernel on shapes the plan gives tma_wgmma: its
+    16-byte copies, as the A/B times it."""
+    _check_conv3x3(shape, torch.bfloat16, cuda, lambda x, k, b: kernels._launch_conv3x3(
+        x, k, b, conv_ab.NEGATIVE_SLOPE, variant="mma_sync"), "mma_sync")
+
+
+def test_conv3x3_misaligned_x_takes_mma_sync(cuda):
+    x, k, b = conv_ab.make_inputs((2, 16, 16, 64, 64), cuda, torch.bfloat16)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    plan = kernels.conv3x3_plan(*x.shape, 64, x.dtype, shifted.data_ptr() % 16)
+    assert plan.variant == "mma_sync"
+    before = kernels.conv3x3_variant_counts()["mma_sync"]
+    got = kernels.conv3x3_bias_lrelu(shifted, k, b, 0.2)
+    torch.cuda.synchronize()
+    assert kernels.conv3x3_variant_counts()["mma_sync"] == before + 1
+    conv_ab.check_against_plain(got, kernels.conv3x3_bias_lrelu_plain(x, k, b, 0.2))
+
+
 def test_conv3x3_kernel_takes_an_f32_bias_beside_bf16(cuda):
-    x, k, b = conv_ab.make_inputs((2, 16, 16, 8, 16), cuda, torch.bfloat16)
-    b32 = b.float() + 1e-3  # not representable in bf16
-    conv_ab.check_against_plain(kernels.conv3x3_bias_lrelu(x, k, b32, 0.2),
-                                kernels.conv3x3_bias_lrelu_plain(x, k, b32, 0.2))
+    for shape in ((2, 16, 16, 8, 16), (2, 16, 16, 64, 72)):  # both tma_wgmma
+        x, k, b = conv_ab.make_inputs(shape, cuda, torch.bfloat16)
+        b32 = b.float() + 1e-3  # not representable in bf16
+        before = kernels.conv3x3_variant_counts()["tma_wgmma"]
+        conv_ab.check_against_plain(kernels.conv3x3_bias_lrelu(x, k, b32, 0.2),
+                                    kernels.conv3x3_bias_lrelu_plain(x, k, b32, 0.2))
+        assert kernels.conv3x3_variant_counts()["tma_wgmma"] == before + 1
 
 
 def test_conv3x3_rejects_instead_of_falling_back(cuda):

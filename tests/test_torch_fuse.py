@@ -16,6 +16,7 @@ from tpgan_tpu.models import local_fuser as jlf
 from tpgan_tpu.ops.pallas_kernels import fuse_parts_pallas, fuse_parts_pallas_interpret
 from tpgan_tpu_torch.models import local_fuser as tlf
 from tpgan_tpu_torch.ops import kernels
+from tpgan_tpu_torch.ops.geometry import PART_GEOMETRY
 
 from _torch_port import nchw, nhwc
 
@@ -111,3 +112,24 @@ def test_extract_parts_inverts_placement():
     assert list(got) == list(want)
     for name in got:
         np.testing.assert_array_equal(nhwc(got[name].numpy()), np.asarray(want[name]))
+
+
+@pytest.mark.parametrize("planes,dtype,per_block,bands", [
+    (512, torch.bfloat16, 2, 4),  # B=8, C=64: two 12,032-byte planes per block
+    (8192, torch.bfloat16, 2, 1),  # B=128, C=64
+    (15, torch.bfloat16, 2, 16),  # an odd B*C: the last block takes one plane
+    (1, torch.bfloat16, 2, 16),
+    (24, torch.bfloat16, 2, 16),  # B=8, C=3: 12 plane pairs in 16 row bands
+    (24, torch.float32, 1, 16),  # one 24,064-byte f32 plane per block
+    (192, torch.bfloat16, 2, 8),  # B=64, C=3
+])
+def test_fuse_forward_launch_plan(planes, dtype, per_block, bands):
+    plan = kernels.fuse_parts_plan(planes, dtype)
+    area = 40 * 40 + 40 * 40 + 32 * 40 + 32 * 48  # 6,016 part pixels per plane
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert (plan.planes_per_block, plan.bands) == (per_block, bands)
+    assert plan.blocks == -(-planes // per_block) * bands
+    assert plan.blocks >= kernels.FUSE_FILL_BLOCKS or bands == kernels.FUSE_MAX_BANDS
+    assert plan.smem_bytes == per_block * area * size <= kernels.FUSE_STAGE_BYTES
+    # each part row starts 16-byte aligned, as the 16-byte copies need
+    assert all(w * size % 16 == 0 for (h, w), _ in PART_GEOMETRY.values())

@@ -3,11 +3,13 @@
 
 The port's counterpart of ``examples/pallas_conv_ab.py``, at its three
 head-area shapes and with its inputs (``RandomState(0)`` normals, weights
-x0.05, everything in bf16, slope 0.2). Per shape it checks the kernel
-against its plain version, then prints one JSON line: the kernel's,
-cuDNN's and the plain version's µs per call (CUDA events after a sleep
-kernel, inputs rotated past the 50 MB L2), convs/s, the bound and the
-card's name and power limit.
+x0.05, everything in bf16, slope 0.2). Per shape it checks the kernel the
+plan picks (``kernels.conv3x3_plan``: ``tma_wgmma`` at these shapes) and
+the general ``mma_sync`` kernel against the plain version, then prints
+one JSON line: µs per call of the kernel, of ``mma_sync`` (timed in turns
+with it: mma_sync, kernel, kernel, mma_sync), of cuDNN and of the plain
+version (CUDA events after a sleep kernel, inputs rotated past the 50 MB
+L2), convs/s, the bound and the card's name and power limit.
 
     python -m tpgan_tpu_torch.examples.conv_ab              # on cuda
     python -m tpgan_tpu_torch.examples.conv_ab --device cpu # plain version; no times
@@ -38,7 +40,7 @@ SHAPES = (
     (32, 32, 32, 256, 256),
 )
 NEGATIVE_SLOPE = 0.2
-ITERS = {"kernel": 100, "cudnn": 100, "plain": 10}
+ITERS = {"kernel": 100, "mma_sync": 100, "cudnn": 100, "plain": 10}
 # The kernel against its plain version, per element: within one bf16 ulp
 # (both round an f32 sum of the same products, taken in another order),
 # plus 1e-6 of the largest output for the sums that cancel to near 0; f32
@@ -126,27 +128,37 @@ def library_settings():
 
 def measure(shape: Shape, device: torch.device, dtype=torch.bfloat16) -> dict:
     """Check the kernel against its plain version at one shape and, on the
-    card, time it, cuDNN and the plain version. ``kernel_calls`` counts
-    the calls made through ``kernels.conv3x3_bias_lrelu`` (on the card,
-    its launches)."""
+    card, time it, the bf16 ``mma_sync`` kernel, cuDNN and the plain
+    version. ``kernel_calls`` counts the calls made through
+    ``kernels.conv3x3_bias_lrelu`` (on the card, its launches, of
+    ``plan``'s variant); ``mma_sync_calls`` those of the forced
+    ``mma_sync`` kernel (bf16 on the card only)."""
     on_card = device.type == "cuda"
     x, k, b = make_inputs(shape, device, dtype)
-    calls = 0
+    plan = kernels.conv3x3_plan(*shape, dtype)
+    calls = {"kernel": 0, "mma_sync": 0}
 
     def kernel(x_):
-        nonlocal calls
-        calls += 1
+        calls["kernel"] += 1
         return kernels.conv3x3_bias_lrelu(x_, k, b, NEGATIVE_SLOPE)
 
+    def mma_sync(x_):
+        calls["mma_sync"] += 1
+        return kernels._launch_conv3x3(x_, k, b, NEGATIVE_SLOPE, variant="mma_sync")
+
+    # the general bf16 kernel beside the plan's, where that is another one
+    race = on_card and plan.variant == "tma_wgmma"
     with library_settings():
         weight = kernels.conv3x3_weight_oihw(k)
         want = kernels.conv3x3_bias_lrelu_plain(x, k, b, NEGATIVE_SLOPE)
         err = check_against_plain(kernel(x), want)
         lib = kernels.conv3x3_bias_lrelu_cudnn(x, weight, b, NEGATIVE_SLOPE)
         row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-               "negative_slope": NEGATIVE_SLOPE, "device": device.type, "max_abs_err": err,
+               "negative_slope": NEGATIVE_SLOPE, "device": device.type,
+               "variant": plan.variant, "plan": plan._asdict(), "max_abs_err": err,
+               "mma_sync_max_abs_err": check_against_plain(mma_sync(x), want) if race else None,
                "cudnn_max_abs_err": float((lib.float() - want.float()).abs().max())}
-        times = dict.fromkeys(("kernel_us", "cudnn_us", "plain_us"))
+        times = dict.fromkeys(("kernel_us", "mma_sync_us", "cudnn_us", "plain_us"))
         if on_card:
             copies = timing.rotated(x.clone, work(shape, dtype)[0])
             turn = iter(range(10**9))
@@ -154,7 +166,15 @@ def measure(shape: Shape, device: torch.device, dtype=torch.bfloat16) -> dict:
             times["cudnn_us"] = 1e3 * timing.gpu_time_ms(
                 lambda: kernels.conv3x3_bias_lrelu_cudnn(pick(), weight, b, NEGATIVE_SLOPE),
                 ITERS["cudnn"])
-            times["kernel_us"] = 1e3 * timing.gpu_time_ms(lambda: kernel(pick()), ITERS["kernel"])
+            order = ("mma_sync", "kernel", "kernel", "mma_sync") if race else ("kernel",)
+            turns = {"kernel": [], "mma_sync": []}
+            for name in order:
+                fn = kernel if name == "kernel" else mma_sync
+                turns[name].append(1e3 * timing.gpu_time_ms(lambda: fn(pick()), ITERS[name]))
+            row["turns_us"] = turns
+            times["kernel_us"] = sum(turns["kernel"]) / len(turns["kernel"])
+            if race:
+                times["mma_sync_us"] = sum(turns["mma_sync"]) / len(turns["mma_sync"])
             times["plain_us"] = 1e3 * timing.gpu_time_ms(
                 lambda: kernels.conv3x3_bias_lrelu_plain(pick(), k, b, NEGATIVE_SLOPE),
                 ITERS["plain"])
@@ -162,12 +182,14 @@ def measure(shape: Shape, device: torch.device, dtype=torch.bfloat16) -> dict:
     if on_card:
         row.update(cudnn_convs_per_s=1e6 / times["cudnn_us"],
                    cuda_convs_per_s=1e6 / times["kernel_us"],
-                   cuda_vs_cudnn=times["cudnn_us"] / times["kernel_us"])
+                   cuda_vs_cudnn=times["cudnn_us"] / times["kernel_us"],
+                   mma_sync_vs_kernel=times["mma_sync_us"] / times["kernel_us"] if race else None)
     else:  # no device time on the CPU: not measured
-        row.update(cudnn_convs_per_s=None, cuda_convs_per_s=None, cuda_vs_cudnn=None)
+        row.update(cudnn_convs_per_s=None, cuda_convs_per_s=None, cuda_vs_cudnn=None,
+                   mma_sync_vs_kernel=None)
     bound_us, bound_by = bound(shape, dtype)
-    row.update(times, bound_us=bound_us, bound_by=bound_by, kernel_calls=calls,
-               card=timing.card_info() if on_card else None)
+    row.update(times, bound_us=bound_us, bound_by=bound_by, kernel_calls=calls["kernel"],
+               mma_sync_calls=calls["mma_sync"], card=timing.card_info() if on_card else None)
     return row
 
 

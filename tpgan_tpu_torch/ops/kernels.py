@@ -11,11 +11,13 @@ version, its autograd wrapper and its launch counter.
   of canvas written, about 6.9 us at 3.35 TB/s. Backward at B=64, C=64
   bf16: part, out slot, g slot and grad each touched once, 197 MB, about
   58.8 us. At C=3 both are bound by the launch.
-* Design: the forward is the gather form — one thread per canvas element
-  writes max(0, covering parts) once, each part element is read once; no
-  zero-fill pass, no atomics. The backward is one launch over the
-  elements of all four parts: grad = g where part >= out in its slot,
-  else 0 (ties share; NaN gets 0, as ``torch.where`` gives).
+* Design: the forward is the gather form, staged — a block copies one or
+  two planes' parts into shared memory with 16-byte ``cp.async``
+  (``fuse_parts_plan``), then writes each canvas pixel once as max(0,
+  covering parts), 16 bytes per store; no zero-fill pass, no atomics. The
+  backward is one launch over the elements of all four parts: grad = g
+  where part >= out in its slot, else 0 (ties share; NaN gets 0, as
+  ``torch.where`` gives).
 
 ``symmetry_tv_losses`` — the fused symmetry + total-variation reduction,
 forward and backward (source: ``tpgan_tpu_torch/csrc/sym_tv.cu``).
@@ -39,8 +41,13 @@ only (source: ``tpgan_tpu_torch/csrc/conv3x3.cu``).
 * Bound at the A/B's dominant shape (8, 128, 128, 64 -> 64) bf16: x read
   and y written once, 33.6 MB (10.0 us), against 9.66 GFLOP (9.8 us).
 * Design: an implicit GEMM (M = B*H*W, N = Cout, K = 9*Cin) that reads the
-  halo as zeros (no padded copy), bf16 on tensor cores (``mma.sync``), f32
-  on CUDA cores; bias and LeakyReLU on the f32 accumulators.
+  halo as zeros (no padded copy); bias and LeakyReLU on the f32
+  accumulators. ``conv3x3_plan`` picks one of three kernels: bf16 with
+  Cin and Cout multiples of 8 and 16-byte-aligned pointers takes
+  ``tma_wgmma`` (TMA loads of 128-pixel image rectangles per tap, zero-
+  filled outside x; ``wgmma`` from a producer-fed ``mbarrier`` ring; a TMA
+  store of the tile); other bf16 takes ``mma_sync``; f32 runs on CUDA
+  cores. ``conv3x3_variant_counts`` counts the launches of each.
 
 Layout: contiguous NCHW for K1 and K2, as the port's modules emit it; NHWC
 x and HWIO weight for K3, the JAX function's. f32 and bf16. A CPU tensor
@@ -53,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +74,10 @@ _LAUNCHES = dict.fromkeys(
     ("fuse_parts", "fuse_parts_bwd", "sym_tv", "sym_tv_bwd", "conv3x3_bias_lrelu"), 0
 )
 
+# Launches of K3 per kernel variant (``conv3x3_plan``); each also counts
+# once under "conv3x3_bias_lrelu" above.
+_CONV3X3_VARIANTS = dict.fromkeys(("tma_wgmma", "mma_sync", "f32"), 0)
+
 FUSE_SOURCE = "fuse_parts.cu"
 SYM_TV_SOURCE = "sym_tv.cu"
 CONV3X3_SOURCE = "conv3x3.cu"
@@ -78,9 +89,15 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def conv3x3_variant_counts() -> Dict[str, int]:
+    """{K3 variant: launches so far}."""
+    return dict(_CONV3X3_VARIANTS)
+
+
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    for counts in (_LAUNCHES, _CONV3X3_VARIANTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_launchable(name: str, tensors: Sequence[torch.Tensor], layout: str = "NCHW") -> str:
@@ -99,6 +116,8 @@ def _stream() -> int:
 
 
 def _raise_on(err: int, name: str) -> None:
+    """Raise on a non-zero entry-point code: a cudaError, or from K3's TMA
+    path 9999 (no cuTensorMapEncodeTiled) or 10000 + a CUresult."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -126,6 +145,40 @@ def _slots() -> List[Tuple[int, int, int, int]]:
 
 def _geometry_arg():
     return (ctypes.c_int * 16)(*[v for slot in _slots() for v in slot])
+
+
+# The forward kernel stages at most this many bytes of parts per block:
+# two bf16 planes (12,032 bytes each) or one f32 plane (24,064 bytes).
+FUSE_STAGE_BYTES = 24 * 1024
+# Launches of fewer plane groups than this split each plane into row bands
+# (2, 4, ... up to 16), so that a C=3 launch still has blocks enough to
+# fill the card: four per SM of an H100 (132 SMs), the best of 1-16 bands
+# at B=8 in bf16 (C=64 and C=3) and f32 (C=3) on the card.
+FUSE_FILL_BLOCKS = 4 * 132
+FUSE_MAX_BANDS = 16
+
+
+class FusePlan(NamedTuple):
+    planes_per_block: int  # 1 or 2, what the kernel is compiled for
+    bands: int  # row bands per plane: blocks along the canvas's rows
+    blocks: int
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+@functools.lru_cache(maxsize=None)  # called on every launch: no host work after the first
+def fuse_parts_plan(planes: int, dtype: torch.dtype) -> FusePlan:
+    """The forward kernel's launch for ``planes`` = B*C canvas planes: as
+    many planes per block (up to 2) as fit in ``FUSE_STAGE_BYTES``, the
+    last block taking the remainder; and the fewest row bands (a power of
+    two, up to ``FUSE_MAX_BANDS``) that give ``FUSE_FILL_BLOCKS`` blocks."""
+    area = sum(h * w for (h, w), _ in PART_GEOMETRY.values())
+    plane_bytes = area * dtype.itemsize
+    per_block = max(1, min(2, FUSE_STAGE_BYTES // plane_bytes))
+    groups = -(-planes // per_block)
+    bands = 1
+    while groups * bands < FUSE_FILL_BLOCKS and bands < FUSE_MAX_BANDS:
+        bands *= 2
+    return FusePlan(per_block, bands, groups * bands, per_block * plane_bytes)
 
 
 def check_parts(parts: Sequence[torch.Tensor]) -> None:
@@ -179,10 +232,12 @@ def fuse_parts_bwd_plain(
 @functools.lru_cache(maxsize=None)
 def _fuse_lib() -> ctypes.CDLL:
     lib = _build.load(FUSE_SOURCE)
-    tail = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+    # planes, geometry, canvas (..., planes per block, row bands), stream
+    head = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    tail = head + [ctypes.c_void_p]
     for suffix in _DTYPE_SUFFIX.values():
         fwd = getattr(lib, f"tpgan_fuse_parts_{suffix}")
-        fwd.argtypes = [ctypes.c_void_p] * 5 + tail
+        fwd.argtypes = [ctypes.c_void_p] * 5 + head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"tpgan_fuse_parts_bwd_{suffix}")
         bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
@@ -195,15 +250,16 @@ def _launch_fuse(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     le = parts[0]
     suffix = _check_launchable("fuse_parts", parts)
     b, c = le.shape[:2]
-    if b * c * CANVAS_SIZE >= 2**31:
-        raise ValueError(f"fuse_parts kernel grid too large for B*C={b * c}")
+    if b * c * CANVAS_SIZE * CANVAS_SIZE >= 2**31:
+        raise ValueError(f"fuse_parts kernel uses 32-bit indices; B*C={b * c} is too large")
     out = torch.empty((b, c, CANVAS_SIZE, CANVAS_SIZE), dtype=le.dtype, device=le.device)
     if out.numel() == 0:
         return out
     fn = getattr(_fuse_lib(), f"tpgan_fuse_parts_{suffix}")
+    plan = fuse_parts_plan(b * c, le.dtype)
     with torch.cuda.device(le.device):
-        err = fn(*(p.data_ptr() for p in parts), out.data_ptr(),
-                 b * c, _geometry_arg(), CANVAS_SIZE, _stream())
+        err = fn(*(p.data_ptr() for p in parts), out.data_ptr(), b * c, _geometry_arg(),
+                 CANVAS_SIZE, plan.planes_per_block, plan.bands, _stream())
     _raise_on(err, "fuse_parts")
     _LAUNCHES["fuse_parts"] += 1
     return out
@@ -473,20 +529,72 @@ def conv3x3_bias_lrelu_cudnn(
     return F.leaky_relu(y, negative_slope, inplace=True).permute(0, 2, 3, 1)
 
 
+CONV3X3_TILE_PIXELS = 128  # M rows of every K3 tile
+CONV3X3_K_CHANNELS = 64  # channels per TMA box and k-block: 128 bytes of bf16
+TMA_BOX_MAX = 256  # TMA's limit on each box dimension
+TMA_SWIZZLE_BYTES = 128  # inner box bytes the 128-byte swizzle allows
+CONV3X3_BN = (64, 128, 256)  # the tma_wgmma kernel's compiled N tiles
+
+
+class Conv3x3Plan(NamedTuple):
+    variant: str  # "tma_wgmma", "mma_sync" (bf16) or "f32"
+    rows: int  # tma_wgmma: the M tile's pixel rectangle, rows x cols = 128
+    cols: int  # (both 0 for the others, whose M tiles run over B*H*W flat)
+    bn: int  # output channels per tile
+    tiles_m: int
+    tiles_n: int
+
+    @property
+    def box(self) -> Tuple[int, int, int, int]:
+        """tma_wgmma's TMA box over x and y seen as (C, W, H, B)."""
+        return (CONV3X3_K_CHANNELS, self.cols, self.rows, 1)
+
+
+def conv3x3_plan(
+    b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
+    x_ptr_mod16: int = 0, w_ptr_mod16: int = 0,
+) -> Conv3x3Plan:
+    """Which K3 kernel a call launches, and its tiles. bf16 with Cin and
+    Cout multiples of 8 (16-byte strides) and 16-byte-aligned x and weight
+    takes ``tma_wgmma``: an M tile is a rows x cols rectangle of one image,
+    cols the largest power of two <= min(W, 128); BN is the narrowest
+    compiled width (64, 128, 256) that covers Cout, 256 beyond it (the
+    fastest on the card at Cout 64, 128 and 256). Other bf16 takes
+    ``mma_sync`` (128 x 64 tiles over B*H*W), f32 the CUDA-core kernel
+    (64 x 64). There is no fallback between them."""
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and x_ptr_mod16 == 0 \
+            and w_ptr_mod16 == 0:
+        cols = 1 << (min(w, CONV3X3_TILE_PIXELS).bit_length() - 1)
+        rows = CONV3X3_TILE_PIXELS // cols
+        bn = next((n for n in CONV3X3_BN if n >= cout), CONV3X3_BN[-1])
+        return Conv3x3Plan("tma_wgmma", rows, cols, bn, b * -(-h // rows) * -(-w // cols),
+                           -(-cout // bn))
+    bm, bn = (128, 64) if dtype == torch.bfloat16 else (64, 64)
+    variant = "mma_sync" if dtype == torch.bfloat16 else "f32"
+    return Conv3x3Plan(variant, 0, 0, bn, -(-b * h * w // bm), -(-cout // bn))
+
+
 @functools.lru_cache(maxsize=None)
 def _conv3x3_lib() -> ctypes.CDLL:
     lib = _build.load(CONV3X3_SOURCE)
+    head = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     for suffix in _DTYPE_SUFFIX.values():
         fn = getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}")
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = head + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.tpgan_conv3x3_bias_lrelu_tma_wgmma
+    fn.argtypes = head + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
 def _launch_conv3x3(
-    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, negative_slope: float
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, negative_slope: float,
+    variant: Optional[str] = None,
 ) -> torch.Tensor:
+    """K3 on the card, the kernel ``conv3x3_plan`` picks; ``variant=
+    "mma_sync"`` runs the general bf16 kernel on any bf16 shape instead
+    (the A/B times it beside the plan's)."""
     suffix = _check_launchable("conv3x3_bias_lrelu", [x, kernel, bias], layout="NHWC/HWIO")
     if bias.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"conv3x3_bias_lrelu kernel takes a float32 or bfloat16 bias, got "
@@ -499,13 +607,25 @@ def _launch_conv3x3(
         raise ValueError(f"conv3x3_bias_lrelu kernel uses 32-bit indices; x {tuple(x.shape)} "
                          f"-> Cout {cout} is too large")
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    fn = getattr(_conv3x3_lib(), f"tpgan_conv3x3_bias_lrelu_{suffix}")
+    plan = conv3x3_plan(b, h, w, cin, cout, x.dtype, x.data_ptr() % 16, kernel.data_ptr() % 16)
+    if variant is not None and variant != plan.variant:
+        if variant != "mma_sync" or x.dtype != torch.bfloat16:
+            raise ValueError(f"conv3x3_bias_lrelu: {variant} cannot take this call "
+                             f"(the plan picks {plan.variant})")
+        plan = plan._replace(variant=variant)
+    lib = _conv3x3_lib()
+    args = (x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), int(bias.dtype == torch.float32),
+            y.data_ptr(), b, h, w, cin, cout)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                 int(bias.dtype == torch.float32), y.data_ptr(), b, h, w, cin, cout,
-                 float(negative_slope), _stream())
-    _raise_on(err, "conv3x3_bias_lrelu")
+        if plan.variant == "tma_wgmma":
+            err = lib.tpgan_conv3x3_bias_lrelu_tma_wgmma(
+                *args, plan.rows, plan.cols, plan.bn, float(negative_slope), _stream())
+        else:
+            err = getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}")(
+                *args, float(negative_slope), _stream())
+    _raise_on(err, f"conv3x3_bias_lrelu ({plan.variant})")
     _LAUNCHES["conv3x3_bias_lrelu"] += 1
+    _CONV3X3_VARIANTS[plan.variant] += 1
     return y
 
 
