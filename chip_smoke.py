@@ -11,10 +11,13 @@ Phases, each of which exits non-zero on failure:
                  ptxas's register lines;
 3. kernels     — each kernel against its plain PyTorch version on the card
                  at the shapes its path gives it: the fuse forward and
-                 backward ``torch.equal`` (NaN cases included), the
+                 backward ``torch.equal`` (NaN and tie cases included; the
+                 backward with g a channel slice of a wider tensor, as a
+                 torch.cat's backward hands it, read with no copy), the
                  symmetry+TV forward within rtol 1e-5 and bit-identical
-                 over two runs, its backward within rtol 1e-6 on inputs
-                 with planted ties; the fuse forward at batch 8 and 128;
+                 over three runs with a call of another shape between
+                 them, its backward within rtol 1e-6 on inputs with
+                 planted ties; the fuse forward at batch 8 and 128;
                  the conv3x3+bias+LeakyReLU (K3) at the three A/B shapes
                  in bf16 (the TMA + wgmma kernel), its tail shapes (W 96
                  and 8, H 1, B 1, Cin 72, Cout 72 and 200, an f32 bias),
@@ -35,9 +38,10 @@ Phases, each of which exits non-zero on failure:
 6. train       — ``train_entry()``: ``create_gan_state`` +
                  ``make_gan_train_step`` at full size (fm 1.0), bf16, batch
                  16, seed 0, synthetic batches, 5 steps; every metric
-                 finite, the parameters move, and per step the kernels
+                 finite, the parameters move, per step the kernels
                  launch 7 fuse / 2 fuse-backward / 1 sym-TV / 1
-                 sym-TV-backward times;
+                 sym-TV-backward times, and the fuse backward copies no g
+                 (the layouts autograd hands it are recorded for phase 8);
 7. train f32   — after a warm-up step, one f32 step (TF32 off,
                  deterministic cuDNN) at batch 8, once through the
                  kernels and once with every kernel wrapper forced onto
@@ -45,12 +49,16 @@ Phases, each of which exits non-zero on failure:
                  every parameter's gradient within a few ulp of its
                  leaf's largest (TRAIN_F32_GRAD_ULPS);
 8. timings     — each kernel against its plain version and its byte bound
-                 (fuse forward at batch 8 and 128; the new kernels at
-                 batch 16 and 64; K3 in f32 at the A/B's first shape
-                 against cuDNN, TF32 off); synthesis latency and images/s at batch
-                 8 and 128; train-step ms and images/s at batch 16 and 64
-                 with peak memory; profiler breakdowns of the batch-8
-                 forward and of one batch-16 train step;
+                 (fuse forward at batch 8 and 128; the fuse backward and
+                 K2 at batch 16 and 64, the fuse backward as the train
+                 step calls it, g in the layout phase 6 recorded, the
+                 whole wrapper call timed, beside a contiguous g; K3 in
+                 f32 at the A/B's first shape against cuDNN, TF32 off);
+                 synthesis latency and images/s at batch 8 and 128;
+                 train-step ms and images/s at batch 16 and 64 with peak
+                 memory; profiler breakdowns of the batch-8 forward and of
+                 one batch-16 train step, with the kernel that runs just
+                 before each fuse backward;
 9. conv A/B    — ``tpgan_tpu_torch.examples.conv_ab``, K3's one path: the
                  kernel (``tma_wgmma``) against the mma_sync kernel (in
                  turns), cuDNN's conv + epilogue and the plain version at
@@ -168,6 +176,30 @@ def max_err(a, b) -> float:
     return float((a[finite].float() - b[finite].float()).abs().max()) if finite.any() else 0.0
 
 
+def slot_union_pixels() -> int:
+    """Canvas pixels that some part's slot covers (the slots overlap)."""
+    import numpy as np
+
+    from tpgan_tpu_torch.ops.geometry import CANVAS_SIZE, PART_GEOMETRY
+
+    covered = np.zeros((CANVAS_SIZE, CANVAS_SIZE), bool)
+    for (h, w), (top, left) in PART_GEOMETRY.values():
+        covered[top : top + h, left : left + w] = True
+    return int(covered.sum())
+
+
+def cat_slice(batch, layout, dtype, seed, device):
+    """A cotangent of ``layout`` = (channels, wide channels, first channel)
+    at ``batch``: channels [first, first + channels) of a (batch, wide, 128,
+    128) tensor, as a torch.cat's backward hands it on."""
+    import torch
+
+    c, wide, first = layout
+    full = torch.randn(batch, wide, 128, 128, device=device,
+                       generator=torch.Generator(device=device).manual_seed(seed)).to(dtype)
+    return full[:, first : first + c]
+
+
 def check_kernels(dev, errors):
     """Phase 3: every kernel against its plain version; fills ``errors``
     with each kernel's max |kernel - plain|."""
@@ -196,36 +228,45 @@ def check_kernels(dev, errors):
 
     for c, dname in FUSE_BWD_SHAPES:
         dtype = getattr(torch, dname)
-        for nan in (False, True):
+        for nan, layout in ((False, "cat slice"), (True, "cat slice"), (True, "transposed")):
             parts = make_parts(TRAIN_BATCH, c, dtype, seed=c + 1, device=dev)
+            g = cat_slice(TRAIN_BATCH, (c, c + 7, 4), dtype, seed=c, device=dev)
+            if layout == "transposed":  # rows not dense: copied once, then the kernel
+                g = g.transpose(2, 3).contiguous().transpose(2, 3)
             if nan:
                 parts[2][0, 1, 3, 4] = float("nan")
-            out = kernels.fuse_parts_plain(*parts)
-            g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(c),
-                            device=dev).to(dtype)
-            if nan:
+                parts[0][1, 0, 31, 32] = parts[2][1, 0, 3, 7] = 1.0  # a tie at canvas (50, 50)
                 g[1, 0, 50, 50] = float("nan")  # a NaN cotangent passes where part >= out
-            g = g.transpose(2, 3).contiguous().transpose(2, 3)  # non-contiguous, as autograd may
-            got = kernels._launch_fuse_bwd(parts, out, g)
-            want = kernels.fuse_parts_bwd_plain(parts, out, g)
+            copies = kernels.copy_counts()["fuse_parts_bwd_g"]
+            got = kernels._launch_fuse_bwd(parts, g)
+            want = kernels.fuse_parts_bwd_plain(parts, kernels.fuse_parts_plain(*parts), g)
             torch.cuda.synchronize()
+            copied = kernels.copy_counts()["fuse_parts_bwd_g"] - copies
+            if copied != (layout == "transposed"):
+                raise AssertionError(f"fuse_parts_bwd copied g {copied} times ({layout})")
             for k, (a, b) in enumerate(zip(got, want)):
                 if a.dtype != dtype or not same(a, b):
                     raise AssertionError(f"fuse_parts_bwd kernel != plain, part {k}, C={c} "
-                                         f"{dname} nan={nan}")
+                                         f"{dname} nan={nan} g {layout}")
                 errors["fuse_parts_bwd"] = max(errors["fuse_parts_bwd"], max_err(a, b))
+            if nan and not (got[0][1, 0, 31, 32].isnan() and got[2][1, 0, 3, 7].isnan()):
+                raise AssertionError("fuse_parts_bwd lost the NaN of g at a tie")
             log(f"kernel check: fuse_parts_bwd B={TRAIN_BATCH} C={c} {dname} nan={nan}: equal "
-                "(g non-contiguous)")
+                f"(g a {layout}, {copied} copies of g)")
 
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         x = make_image(TRAIN_BATCH, dtype, seed=3, device=dev)
-        sums, sym, tv = kernels._launch_sym_tv(x)
-        sums2, sym2, tv2 = kernels._launch_sym_tv(x)
+        other = make_image(2, dtype, seed=5, device=dev)[:, :, :7, :5].contiguous()
+        runs = []
+        for _ in range(3):  # a call of another shape between: the finish's counter is reset
+            runs.append([t.clone() for t in kernels._launch_sym_tv(x)])
+            kernels._launch_sym_tv(other)
+        sums, sym, tv = runs[0]
         want = kernels.sym_tv_sums_plain(x)
         want_sym, want_tv = kernels.symmetry_tv_plain(x)
         torch.cuda.synchronize()
-        if not (torch.equal(sums, sums2) and torch.equal(sym, sym2) and torch.equal(tv, tv2)):
+        if not all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run)):
             raise AssertionError(f"sym_tv kernel is not deterministic ({dname})")
         for name, a, b in (("sums", sums, want), ("sym", sym, want_sym), ("tv", tv, want_tv)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=f"sym_tv {name} {dname}")
@@ -241,7 +282,7 @@ def check_kernels(dev, errors):
         torch.testing.assert_close(dx, dx_want, rtol=1e-6, atol=0, msg=f"sym_tv_bwd {dname}")
         errors["sym_tv_bwd"] = max(errors["sym_tv_bwd"], max_err(dx, dx_want))
         log(f"kernel check: sym_tv B={TRAIN_BATCH} {dname}: sums {sums.tolist()} vs plain "
-            f"{want.tolist()}, bit-identical over two runs; sym_tv_bwd within rtol 1e-6 "
+            f"{want.tolist()}, bit-identical over three runs; sym_tv_bwd within rtol 1e-6 "
             f"(max|diff| {max_err(dx, dx_want):.3e}, planted ties)")
 
     for what, call in (
@@ -343,30 +384,44 @@ def run_train(dev, tag):
     step_fn, (state, batch, generator) = train_entry()
     models = (state.gen, state.disc)
     before = [[p.detach().clone() for p in m.parameters()] for m in models]
+    layouts = {}  # channels -> (channels, wide channels, first channel) of the g handed on
+    launch_fuse_bwd = kernels._launch_fuse_bwd
+
+    def spy(parts, g):
+        plane = g.shape[2] * g.shape[3]
+        layouts[g.shape[1]] = (g.shape[1], g.stride(0) // plane, g.storage_offset() // plane
+                               % (g.stride(0) // plane))
+        return launch_fuse_bwd(parts, g)
+
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     history = []
-    for _ in range(TRAIN_STEPS):
-        state, metrics = step_fn(state, batch, generator)
-        history.append(metrics)
-    torch.cuda.synchronize()
+    with mock.patch.object(kernels, "_launch_fuse_bwd", spy):
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step_fn(state, batch, generator)
+            history.append(metrics)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    copies = kernels.copy_counts()
     for m in history:
         train_metrics_ok(m)
     want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
+    if copies != {"fuse_parts_bwd_g": 0}:
+        raise AssertionError(f"train path copied g before the fuse backward: {copies}")
     moved = [sum(not torch.equal(a, p) for a, p in zip(b, m.parameters()))
              for b, m in zip(before, models)]
     if min(moved) == 0 or state.step != TRAIN_STEPS:
         raise AssertionError(f"params moved (G, D): {moved}; step {state.step} != {TRAIN_STEPS}")
     last = {k: round(float(v), 5) for k, v in history[-1].items()}
     log(f"train: full size bf16 batch {TRAIN_BATCH}, {TRAIN_STEPS} steps in {wall:.2f} s "
-        f"incl. first-step set-up; launches {launches} ({PER_STEP} per step); params moved "
-        f"(G, D) {moved} of {[len(b) for b in before]} tensors; "
+        f"incl. first-step set-up; launches {launches} ({PER_STEP} per step); copies {copies}; "
+        f"g handed to the fuse backward as (channels, of wide, from) {sorted(layouts.values())}; "
+        f"params moved (G, D) {moved} of {[len(b) for b in before]} tensors; "
         f"last metrics {last} {tag}")
-    return launches, (step_fn, state, batch, generator)
+    return launches, layouts, (step_fn, state, batch, generator)
 
 
 def grad_gap(a, b):
@@ -443,9 +498,11 @@ def run_train_f32(dev):
     torch.backends.cudnn.deterministic = False
 
 
-def time_kernels(dev, tag):
+def time_kernels(dev, tag, layouts):
     """Phase 8, kernels: µs per call against the plain version and the
-    byte bound, inputs rotated past L2."""
+    byte bound, inputs rotated past L2. The fuse backward's whole wrapper
+    call is timed with g in each ``layouts`` entry (phase 6's: how the
+    train step hands it on) and, beside it, contiguous."""
     import torch
 
     from tpgan_tpu_torch.examples import conv_ab
@@ -454,13 +511,14 @@ def time_kernels(dev, tag):
 
     rows = []
 
-    def row(name, batch, label, k_ms, p_ms, nbytes):
+    def row(name, batch, label, k_ms, p_ms, nbytes, main=True, counted=""):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append(dict(name=name, batch=batch, label=label, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound_ms))
+        if main:  # the call as the main path makes it; the others are printed only
+            rows.append(dict(name=name, batch=batch, label=label, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bound_ms))
         log(f"time: {name} B={batch} {label}: kernel {k_ms * 1e3:.2f} us, plain "
-            f"{p_ms * 1e3:.2f} us, byte bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB; "
-            f"{bound_ms / k_ms:.0%} of bound) {tag}")
+            f"{p_ms * 1e3:.2f} us, byte bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB"
+            f"{counted}; {bound_ms / k_ms:.0%} of bound) {tag}")
 
     for batch in (BATCH, 128):
         for c, dname in FUSE_SHAPES:
@@ -480,21 +538,34 @@ def time_kernels(dev, tag):
         f"cuDNN {r['cudnn_us']:.2f} us, plain {r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us "
         f"({r['bound_by']}; {r['bound_us'] / r['kernel_us']:.0%} of bound) {tag}")
 
+    union = slot_union_pixels()
     for batch in (TRAIN_BATCH, 64):
         for c, dname in FUSE_BWD_SHAPES:
             dtype = getattr(torch, dname)
+            size = torch.tensor([], dtype=dtype).element_size()
             parts = make_parts(batch, c, dtype, seed=2, device=dev)
             out = kernels.fuse_parts_plain(*parts)
-            g = torch.randn(out.shape, device=dev).to(dtype)
-            # part, out slot, g slot and grad: each touched once
-            nbytes = 4 * sum(p.numel() for p in parts) * parts[0].element_size()
-            copies = rotated(lambda: ([p.clone() for p in parts], out.clone(), g.clone()),
-                             nbytes + 2 * out.numel() * out.element_size())
-            it = iter(range(10**9))
-            k_ms = gpu_time_ms(lambda: kernels._launch_fuse_bwd(*copies[next(it) % len(copies)]), 100)
-            p_ms = gpu_time_ms(lambda: kernels.fuse_parts_bwd_plain(*copies[next(it) % len(copies)]), 30)
-            row("fuse_parts_bwd", batch, f"C={c} {dname}", k_ms, p_ms, nbytes)
-            del parts, out, g, copies
+            # parts read and grads written once, g read over the union of the slots
+            part_bytes = sum(p.numel() for p in parts) * size
+            nbytes = 2 * part_bytes + batch * c * union * size
+            counted = (f": parts {part_bytes / 1e6:.2f} + grads {part_bytes / 1e6:.2f} + g over "
+                       f"{union} px/plane {batch * c * union * size / 1e6:.2f}")
+            for layout, main in ((layouts[c], True), ((c, c, 0), False)):
+                if not main and layout == layouts[c]:
+                    continue  # the train step hands this one on contiguous
+                label = f"C={c} {dname}, g {'as the train step hands it' if main else 'contiguous'} " \
+                        f"(channels {layout[2]}-{layout[2] + c - 1} of {layout[1]})"
+                copies = rotated(lambda: ([p.clone() for p in parts], out.clone(),
+                                          cat_slice(batch, layout, dtype, 3, dev)),
+                                 nbytes + out.numel() * size)
+                it = iter(range(10**9))
+                k_ms = gpu_time_ms(lambda: kernels._launch_fuse_bwd(
+                    *copies[next(it) % len(copies)][::2]), 100)
+                p_ms = gpu_time_ms(lambda: kernels.fuse_parts_bwd_plain(
+                    *copies[next(it) % len(copies)]), 30)
+                row("fuse_parts_bwd", batch, label, k_ms, p_ms, nbytes, main, counted)
+                del copies
+            del parts, out
 
         x = make_image(batch, torch.bfloat16, seed=4, device=dev)
         nbytes = x.numel() * x.element_size()
@@ -578,9 +649,10 @@ def time_train(dev, tag):
         del step_fn, state, b, generator, metrics, _m
 
 
-def profile(fn, iters, what, unit, tag, names):
+def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
-    of each named kernel, over ``iters`` calls of ``fn``."""
+    of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
+    the device kernels that ran just before each kernel of that name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -620,6 +692,12 @@ def profile(fn, iters, what, unit, tag, names):
         f"{'; '.join(shares)} {tag}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {us / iters / 1e3:8.3f} ms/{unit}  {name[:110]}")
+    if before:
+        timeline = sorted(kern, key=lambda e: e.time_range.start)
+        for prev, e in zip(timeline, timeline[1:]):
+            if before in e.name:
+                log(f"profile:   before {before}: {prev.time_range.elapsed_us():.2f} us "
+                    f"{'[a copy] ' if 'copy' in prev.name.lower() else ''}{prev.name[:100]}")
     top = sorted(left_out.items(), key=lambda kv: -kv[1])[:3]
     log(f"profile:   left out of busy time: {sum(left_out.values()) // iters} annotation "
         f"ranges/{unit} {[(n[:40], c // iters) for n, c in top]}")
@@ -731,7 +809,7 @@ def main() -> int:
     del synth32, with_kernel, with_plain
 
     # ---- 6. train: full-size bf16 steps through train_entry ----
-    train_launches, (step_fn, state, tbatch, tgen) = run_train(dev, tag)
+    train_launches, g_layouts, (step_fn, state, tbatch, tgen) = run_train(dev, tag)
     b8 = {k: torch.as_tensor(v, device=dev) for k, v in requests[0][0].items()
           if k in ("img", "left_eye", "right_eye", "nose", "mouth")}
     z8 = torch.as_tensor(requests[0][1], device=dev)
@@ -742,9 +820,8 @@ def main() -> int:
 
     profile(one_step, 2, f"train step bf16 batch {TRAIN_BATCH}", "step", tag, {
         "fuse_parts": ["fuse_parts_kernel"], "fuse_parts_bwd": ["fuse_parts_bwd_kernel"],
-        "sym_tv": ["sym_tv_partial_kernel", "sym_tv_final_kernel"],
-        "sym_tv_bwd": ["sym_tv_bwd_kernel"],
-    })
+        "sym_tv": ["sym_tv_kernel"], "sym_tv_bwd": ["sym_tv_bwd_kernel"],
+    }, before="fuse_parts_bwd_kernel")
     del step_fn, state, train_box, tbatch, tgen
 
     # ---- 7. train f32: kernels vs plain versions ----
@@ -754,7 +831,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- 8. timings ----
-    rows = time_kernels(dev, tag)
+    rows = time_kernels(dev, tag, g_layouts)
     time_synthesis(dev, synthesize, cfg.G.zdim, tag)
     profile(lambda: synthesize(b8, z8), 3, f"bf16 synthesis batch {BATCH}", "forward", tag,
             {"fuse_parts": ["fuse_parts_kernel"]})

@@ -106,13 +106,27 @@ def test_fuse_kernel_rejects_instead_of_falling_back(cuda):
         kernels.fuse_parts(*(p.half() for p in parts))
 
 
-def test_fuse_gradient_on_cuda_equals_cpu(cuda):
+@pytest.mark.parametrize("layout", ["dense", "cat_slice"])
+def test_fuse_gradient_on_cuda_equals_cpu(cuda, layout):
+    """Through autograd on both devices; ``cat_slice``: the canvas feeds a
+    ``torch.cat``, so its cotangent is a channel slice of the cat's, which
+    the kernel reads in place. Autograd saves the parts, not the canvas."""
     parts = [p.nan_to_num(0.0) for p in _parts(2, 16, torch.float32, cuda, seed=3)]
-    g = torch.randn(2, 16, 128, 128, generator=torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(0)
+    g = torch.randn(2, 16 + 8 * (layout == "cat_slice"), 128, 128, generator=rng)
+    others = [torch.randn(2, 5, 128, 128, generator=rng), torch.randn(2, 3, 128, 128, generator=rng)]
     grads = []
     for device in (cuda, torch.device("cpu")):
         ps = [p.detach().to(device).requires_grad_() for p in parts]
-        (kernels.fuse_parts(*ps) * g.to(device)).sum().backward()
+        saved = []
+        copies = kernels.copy_counts()["fuse_parts_bwd_g"]
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+            canvas = kernels.fuse_parts(*ps)
+        assert [tuple(t.shape) for t in saved] == [tuple(p.shape) for p in ps]
+        if layout == "cat_slice":
+            canvas = torch.cat([others[0].to(device), canvas, others[1].to(device)], dim=1)
+        (canvas * g.to(device)).sum().backward()
+        assert kernels.copy_counts()["fuse_parts_bwd_g"] == copies
         grads.append([p.grad.cpu() for p in ps])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
@@ -144,19 +158,94 @@ def _tied_image(b, dtype, device, seed=0):
     return torch.from_numpy(x).to(device, dtype)
 
 
+def _cotangent(b, c, dtype, device, layout, seed=1):
+    """A (b, c, 128, 128) g with a NaN inside the left-eye / nose overlap:
+    ``cat_slice`` a channel slice of a wider tensor (a torch.cat's
+    gradient), ``contiguous``, or ``transposed`` (rows not dense)."""
+    rng = torch.Generator(device=device).manual_seed(seed)
+    wide = torch.randn(b, c + 7, 128, 128, generator=rng, device=device).to(dtype)
+    g = {"cat_slice": wide[:, 4 : 4 + c], "contiguous": wide[:, :c].contiguous(),
+         "transposed": wide[:, :c].transpose(2, 3).contiguous().transpose(2, 3)}[layout]
+    g[0, c - 1, 50, 50] = float("nan")  # passes where the part reaches the max
+    return g
+
+
+def _check_fuse_bwd(parts, g, copies):
+    """The backward kernel against the plain version, ``copies`` copies of
+    g counted, one launch."""
+    launches = kernels.launch_counts()["fuse_parts_bwd"]
+    before = kernels.copy_counts()["fuse_parts_bwd_g"]
+    got = kernels._launch_fuse_bwd(parts, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fuse_parts_bwd"] == launches + 1
+    assert kernels.copy_counts()["fuse_parts_bwd_g"] == before + copies
+    want = kernels.fuse_parts_bwd_plain(parts, kernels.fuse_parts_plain(*parts), g)
+    for a, b, p in zip(got, want, parts):
+        assert a.dtype == p.dtype and a.shape == p.shape
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+    return got
+
+
 @pytest.mark.parametrize("c,dtype", [(64, torch.bfloat16), (3, torch.bfloat16), (3, torch.float32)])
 def test_fuse_backward_kernel_equals_plain_version(cuda, c, dtype):
+    """A g whose rows are not dense is copied once (counted), then the
+    kernel runs; NaN in a part and in g, ties, zeros."""
     parts = _parts(4, c, dtype, cuda, seed=c + 1)
-    out = kernels.fuse_parts_plain(*parts)
-    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(1),
-                    device=cuda).to(dtype)
-    g = g.transpose(2, 3).contiguous().transpose(2, 3)  # non-contiguous, as autograd may hand it
-    before = kernels.launch_counts()["fuse_parts_bwd"]
-    got = kernels._launch_fuse_bwd(parts, out, g)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts()["fuse_parts_bwd"] == before + 1
-    for a, b in zip(got, kernels.fuse_parts_bwd_plain(parts, out, g)):
-        assert a.dtype == dtype and torch.equal(a, b)
+    parts[0][0, c - 1, 31, 32] = parts[2][0, c - 1, 3, 7] = 1.0  # a tie at g's NaN, (50, 50)
+    got = _check_fuse_bwd(parts, _cotangent(4, c, dtype, cuda, "transposed"), copies=1)
+    assert bool(got[0][0, c - 1, 31, 32].isnan()) and bool(got[2][0, c - 1, 3, 7].isnan())
+
+
+@pytest.mark.parametrize("layout,copies", [("cat_slice", 0), ("contiguous", 0), ("transposed", 1)])
+@pytest.mark.parametrize("c,dtype", [(64, torch.bfloat16), (3, torch.bfloat16), (16, torch.float32)])
+def test_fuse_backward_kernel_takes_g_as_autograd_hands_it(cuda, layout, copies, c, dtype):
+    parts = _parts(16, c, dtype, cuda, seed=c)
+    _check_fuse_bwd(parts, _cotangent(16, c, dtype, cuda, layout), copies)
+
+
+@pytest.mark.parametrize("b,c,dtype,bands", [
+    (1, 64, torch.bfloat16, 8),  # B = 1
+    (3, 5, torch.bfloat16, 15),  # B*C odd
+    (16, 3, torch.bfloat16, 8),  # the C=3 backward of the train step
+    (64, 3, torch.bfloat16, 2),  # each band split the plan makes
+    (2, 64, torch.bfloat16, 4),
+    (16, 64, torch.bfloat16, 1),  # the C=64 backward of the train step
+    (64, 64, torch.bfloat16, 1),
+    (1, 3, torch.float32, 15),
+    (16, 3, torch.float32, 8),
+    (64, 3, torch.float32, 2),
+    (8, 64, torch.float32, 1),  # 55.7 KB of shared memory per block
+])
+def test_fuse_backward_kernel_takes_any_plane_count(cuda, b, c, dtype, bands):
+    assert kernels.fuse_parts_bwd_plan(b * c, dtype).bands == bands
+    parts = _parts(b, c, dtype, cuda, seed=b + c)
+    _check_fuse_bwd(parts, _cotangent(b, c, dtype, cuda, "cat_slice"), copies=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fuse_backward_kernel_stages_misaligned_inputs(cuda, dtype):
+    """A part and a g that start one element past a 16-byte boundary take
+    the element copies into shared memory; nothing is copied in Python."""
+    parts = _parts(2, 8, dtype, cuda, seed=5)
+    shifted = torch.empty(parts[3].numel() + 1, dtype=dtype, device=cuda)[1:]
+    shifted.copy_(parts[3].reshape(-1))
+    parts[3] = shifted.view(parts[3].shape)
+    g = _cotangent(2, 8, dtype, cuda, "contiguous")
+    g_shifted = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:].view(g.shape)
+    g_shifted.copy_(g)
+    assert parts[3].data_ptr() % 16 != 0 and g_shifted.data_ptr() % 16 != 0
+    _check_fuse_bwd(parts, g_shifted, copies=0)
+    _check_fuse_bwd(parts, g, copies=0)  # aligned g, misaligned part
+
+
+def test_fuse_backward_rejects_instead_of_falling_back(cuda):
+    parts = _parts(2, 3, torch.float32, cuda)
+    g = _cotangent(2, 3, torch.float32, cuda, "contiguous")
+    with pytest.raises(TypeError, match="g is torch.bfloat16"):
+        kernels._launch_fuse_bwd(parts, g.bfloat16())
+    with pytest.raises(ValueError, match="expected"):
+        kernels._launch_fuse_bwd(parts, g[:, :2])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -187,6 +276,55 @@ def test_sym_tv_kernels_equal_plain_versions(cuda, dtype):
                                kernels.sym_tv_bwd_plain(x, g_sym, g_tv), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 3, 128, 128), torch.bfloat16),
+    ((16, 3, 128, 128), torch.bfloat16),
+    ((64, 3, 128, 128), torch.bfloat16),
+    ((16, 3, 128, 128), torch.float32),
+    ((2, 3, 7, 5), torch.bfloat16),  # single elements: W is not a 16-byte multiple
+    ((2, 3, 7, 5), torch.float32),
+    ((3, 2, 9, 24), torch.bfloat16),  # 24 bf16: single elements
+    ((3, 2, 9, 24), torch.float32),  # 16-byte chunks, 6 per row
+])
+def test_sym_tv_forward_kernel_equals_plain_version(cuda, shape, dtype):
+    x = torch.from_numpy(np.random.RandomState(sum(shape)).uniform(-1, 1, shape)
+                         .astype(np.float32)).to(cuda, dtype)
+    x[:, :, 1] = x[:, :, 0]  # H ties
+    sums, sym, tv = kernels._launch_sym_tv(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sums, kernels.sym_tv_sums_plain(x), rtol=1e-5, atol=0)
+    want_sym, want_tv = kernels.symmetry_tv_plain(x)
+    torch.testing.assert_close(sym, want_sym, rtol=1e-5, atol=0)
+    torch.testing.assert_close(tv, want_tv, rtol=1e-5, atol=0)
+    x[-1, -1, -1, 0] = float("nan")  # a corner: it reaches all three sums
+    sums, sym, tv = kernels._launch_sym_tv(x)
+    assert bool(sums.isnan().all()) and bool(sym.isnan()) and bool(tv.isnan())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sym_tv_forward_is_one_deterministic_launch(cuda, dtype):
+    """Bit-identical over three calls, with a call of another shape between
+    them (a counter left non-zero would change the finish), and one device
+    kernel per call."""
+    x = _tied_image(16, dtype, cuda)
+    other = torch.rand(2, 3, 7, 5, device=cuda, dtype=dtype)
+    kernels._launch_sym_tv(x)  # the scratch is made on the first call
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["sym_tv"]
+    runs = []
+    for _ in range(3):
+        runs.append(torch.cat([t.reshape(-1) for t in kernels._launch_sym_tv(x)]).clone())
+        kernels._launch_sym_tv(other)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sym_tv"] == before + 6
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernels._launch_sym_tv(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len([n for n in names if "sym_tv" in n]) == 1, names
+
+
 def test_sym_tv_rejects_instead_of_falling_back(cuda):
     x = _tied_image(2, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -206,6 +344,7 @@ def test_small_bf16_train_step_goes_through_every_kernel(cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fuse_parts": 7, "fuse_parts_bwd": 2,
                                        "sym_tv": 1, "sym_tv_bwd": 1, "conv3x3_bias_lrelu": 0}
+    assert kernels.copy_counts() == {"fuse_parts_bwd_g": 0}  # g read where autograd left it
     assert all(torch.isfinite(v.float()) for v in metrics.values())
     assert state.step == 1
 

@@ -186,3 +186,22 @@ def test_sym_tv_backward_plain_version_is_jax_rule_by_hand():
     want_h = np.array([[-1, 1, 1], [1, -1, -1]]) / n_h
     want_w = np.array([[-1, 1 - 1, 1], [1, -1 - 1, 1]]) / n_w
     np.testing.assert_allclose(g.numpy()[0, 0], want_h + want_w, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,dtype,mod16,chunk,blocks", [
+    ((16, 3, 128, 128), torch.bfloat16, 0, 8, 384),  # the train step at batch 16
+    ((64, 3, 128, 128), torch.bfloat16, 0, 8, kernels.SYM_TV_MAX_BLOCKS),  # batch 64: capped
+    ((1, 3, 128, 128), torch.bfloat16, 0, 8, 24),
+    ((16, 3, 128, 128), torch.float32, 0, 4, 768),
+    ((2, 3, 7, 5), torch.float32, 0, 1, 1),  # W not a multiple of a 16-byte chunk
+    ((2, 3, 16, 12), torch.bfloat16, 0, 1, 5),  # 12 bf16 = 24 bytes: single elements
+    ((2, 3, 16, 12), torch.float32, 0, 4, 2),
+    ((16, 3, 128, 128), torch.bfloat16, 2, 1, kernels.SYM_TV_MAX_BLOCKS),  # x misaligned
+])
+def test_sym_tv_forward_launch_plan(shape, dtype, mod16, chunk, blocks):
+    plan = kernels.sym_tv_plan(shape, dtype, mod16)
+    assert (plan.chunk, plan.blocks) == (chunk, blocks)
+    items = int(np.prod(shape)) // chunk  # 16-byte chunks of rows, or elements
+    # one thread per item while the blocks allow it, never an empty block
+    assert (plan.blocks - 1) * kernels.SYM_TV_THREADS < items
+    assert plan.blocks == kernels.SYM_TV_MAX_BLOCKS or plan.blocks * kernels.SYM_TV_THREADS >= items

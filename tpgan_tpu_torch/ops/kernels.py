@@ -8,27 +8,35 @@ version, its autograd wrapper and its launch counter.
   _fuse_pallas_raw`` (body ``_make_fuse_kernel``), reached through
   ``fuse_parts_pallas``, and its backward ``_fuse_bwd`` (plain jnp there).
 * Bound: bytes. Forward at B=8, C=64 bf16: 6.2 MB of parts read, 16.8 MB
-  of canvas written, about 6.9 us at 3.35 TB/s. Backward at B=64, C=64
-  bf16: part, out slot, g slot and grad each touched once, 197 MB, about
-  58.8 us. At C=3 both are bound by the launch.
+  of canvas written, about 6.9 us at 3.35 TB/s. Backward: parts read and
+  grads written (6,016 px each per plane) and g read over the union of
+  the slots (5,358 px), 34,780 bytes per bf16 plane: 35.6 MB and 10.6 us
+  at B=16, C=64; 42.5 us at B=64. At C=3 both are bound by the launch.
 * Design: the forward is the gather form, staged — a block copies one or
   two planes' parts into shared memory with 16-byte ``cp.async``
   (``fuse_parts_plan``), then writes each canvas pixel once as max(0,
   covering parts), 16 bytes per store; no zero-fill pass, no atomics. The
-  backward is one launch over the elements of all four parts: grad = g
-  where part >= out in its slot, else 0 (ties share; NaN gets 0, as
-  ``torch.where`` gives).
+  backward is one launch for the four parts (``fuse_parts_bwd_plan``): a
+  block stages a band of one plane's part rows and the 16-byte chunks of
+  g over the slots, recomputes the canvas from the staged parts (autograd
+  keeps only the parts, not the canvas), and writes grad = g where part
+  >= out, else 0, in 16-byte stores (ties share; NaN gets 0, as
+  ``torch.where`` gives). It reads g as autograd hands it when its rows
+  are dense (a channel slice of a ``torch.cat``'s gradient, for one); any
+  other layout is copied once and counted in ``copy_counts()``.
 
 ``symmetry_tv_losses`` — the fused symmetry + total-variation reduction,
 forward and backward (source: ``tpgan_tpu_torch/csrc/sym_tv.cu``).
 
 * Replaces ``_sym_tv_sums_raw`` (body ``_make_sym_tv_kernel``), reached
   through ``symmetry_tv_losses``, and its backward ``_sym_tv_bwd``.
-* Bound: bytes. Forward: one read of x, 6.3 MB at B=64 bf16 (1.9 us), so
-  its two launches are its real cost. Backward: x read and dx written,
-  12.6 MB (3.8 us).
-* Design: a deterministic two-stage sum (per-block partials, then one
-  block in a fixed order; no float atomics), normalised on the device;
+* Bound: bytes. Forward: one read of x, 1.57 MB at B=16 bf16 (0.47 us),
+  6.3 MB at B=64 (1.9 us), so a launch is most of its cost. Backward: x
+  read and dx written, 12.6 MB at B=64 (3.8 us).
+* Design: the forward is one deterministic launch (``sym_tv_plan``):
+  16-byte chunks of rows per thread, per-block partials, and the last
+  block to finish (an atomic ticket, no float atomics) sums them in block
+  order and writes the sums and the two means into one 5-float buffer;
   the backward is one elementwise pass that reads the upstream scalars
   from device memory and takes sign(0) = +1, JAX's abs rule.
 
@@ -78,6 +86,10 @@ _LAUNCHES = dict.fromkeys(
 # once under "conv3x3_bias_lrelu" above.
 _CONV3X3_VARIANTS = dict.fromkeys(("tma_wgmma", "mma_sync", "f32"), 0)
 
+# Copies a wrapper made before a launch: the fuse backward's of a g whose
+# rows are not dense.
+_COPIES = dict.fromkeys(("fuse_parts_bwd_g",), 0)
+
 FUSE_SOURCE = "fuse_parts.cu"
 SYM_TV_SOURCE = "sym_tv.cu"
 CONV3X3_SOURCE = "conv3x3.cu"
@@ -94,8 +106,14 @@ def conv3x3_variant_counts() -> Dict[str, int]:
     return dict(_CONV3X3_VARIANTS)
 
 
+def copy_counts() -> Dict[str, int]:
+    """{input: copies a wrapper made of it before a launch, so far}."""
+    return dict(_COPIES)
+
+
 def reset_launch_counts() -> None:
-    for counts in (_LAUNCHES, _CONV3X3_VARIANTS):
+    """Set the launch, variant and copy counts to 0."""
+    for counts in (_LAUNCHES, _CONV3X3_VARIANTS, _COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -152,9 +170,12 @@ def _geometry_arg():
 FUSE_STAGE_BYTES = 24 * 1024
 # Launches of fewer plane groups than this split each plane into row bands
 # (2, 4, ... up to 16), so that a C=3 launch still has blocks enough to
-# fill the card: four per SM of an H100 (132 SMs), the best of 1-16 bands
-# at B=8 in bf16 (C=64 and C=3) and f32 (C=3) on the card.
+# fill the card: for the forward four per SM of an H100 (132 SMs), the
+# best of 1-16 bands at B=8 in bf16 (C=64 and C=3) and f32 (C=3) on the
+# card; for the backward (one plane per block) two per SM, the best of
+# 1-16 bands at B=16 and 64, C=64 and 3, bf16.
 FUSE_FILL_BLOCKS = 4 * 132
+FUSE_BWD_FILL_BLOCKS = 2 * 132
 FUSE_MAX_BANDS = 16
 
 
@@ -165,20 +186,59 @@ class FusePlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
 
 
+def _fill_bands(groups: int, fill: int) -> int:
+    """The fewest row bands (a power of two, up to ``FUSE_MAX_BANDS``) that
+    give ``groups`` plane groups ``fill`` blocks."""
+    bands = 1
+    while groups * bands < fill and bands < FUSE_MAX_BANDS:
+        bands *= 2
+    return bands
+
+
 @functools.lru_cache(maxsize=None)  # called on every launch: no host work after the first
 def fuse_parts_plan(planes: int, dtype: torch.dtype) -> FusePlan:
     """The forward kernel's launch for ``planes`` = B*C canvas planes: as
     many planes per block (up to 2) as fit in ``FUSE_STAGE_BYTES``, the
-    last block taking the remainder; and the fewest row bands (a power of
-    two, up to ``FUSE_MAX_BANDS``) that give ``FUSE_FILL_BLOCKS`` blocks."""
-    area = sum(h * w for (h, w), _ in PART_GEOMETRY.values())
-    plane_bytes = area * dtype.itemsize
+    last block taking the remainder, in ``_fill_bands`` row bands."""
+    plane_bytes = sum(h * w for (h, w), _ in PART_GEOMETRY.values()) * dtype.itemsize
     per_block = max(1, min(2, FUSE_STAGE_BYTES // plane_bytes))
     groups = -(-planes // per_block)
-    bands = 1
-    while groups * bands < FUSE_FILL_BLOCKS and bands < FUSE_MAX_BANDS:
-        bands *= 2
+    bands = _fill_bands(groups, FUSE_FILL_BLOCKS)
     return FusePlan(per_block, bands, groups * bands, per_block * plane_bytes)
+
+
+class FuseBwdPlan(NamedTuple):
+    bands: int  # blocks per plane, along the rows some slot covers
+    band_rows: int  # canvas rows per band
+    blocks: int
+    smem_bytes: int  # dynamic shared memory of one block: part rows and g rows
+
+
+def fuse_bwd_g_window(itemsize: int) -> Tuple[int, int]:
+    """(first column, width) of the canvas columns whose g the backward
+    stages per row: the slots' column span, widened to 16-byte chunks."""
+    per = 16 // itemsize
+    lo = min(left for _t, left, _h, _w in _slots())
+    hi = max(left + w for _t, left, _h, w in _slots())
+    return lo // per * per, -(-hi // per) * per - lo // per * per
+
+
+@functools.lru_cache(maxsize=None)
+def fuse_parts_bwd_plan(planes: int, dtype: torch.dtype) -> FuseBwdPlan:
+    """The backward kernel's launch for ``planes`` = B*C planes: one plane
+    per block, the rows some slot covers (18-103) split into
+    ``_fill_bands(planes, FUSE_BWD_FILL_BLOCKS)`` bands of ``band_rows``
+    rows (the last may be shorter). A block stages each part's rows in its
+    band (at most min(h, band_rows) of them) and ``band_rows`` rows of the
+    g window (``fuse_bwd_g_window``)."""
+    slots = _slots()
+    row_lo = min(top for top, _l, _h, _w in slots)
+    span = max(top + h for top, _l, h, _w in slots) - row_lo
+    band_rows = -(-span // _fill_bands(planes, FUSE_BWD_FILL_BLOCKS))
+    bands = -(-span // band_rows)
+    staged = sum(min(h, band_rows) * w for _t, _l, h, w in slots)
+    staged += band_rows * fuse_bwd_g_window(dtype.itemsize)[1]
+    return FuseBwdPlan(bands, band_rows, planes * bands, staged * dtype.itemsize)
 
 
 def check_parts(parts: Sequence[torch.Tensor]) -> None:
@@ -218,7 +278,8 @@ def fuse_parts_bwd_plain(
     parts: Sequence[torch.Tensor], out: torch.Tensor, g: torch.Tensor
 ) -> List[torch.Tensor]:
     """Plain backward, the port of ``_fuse_bwd``: each part gets g where
-    part >= out in its slot (ties share), in the part's dtype."""
+    part >= out in its slot (ties share), in the part's dtype; ``out`` is
+    the fused canvas of ``parts``."""
     grads = []
     for part, (top, left, h, w) in zip(parts, _slots()):
         out_slot = out[:, :, top : top + h, left : left + w]
@@ -232,16 +293,17 @@ def fuse_parts_bwd_plain(
 @functools.lru_cache(maxsize=None)
 def _fuse_lib() -> ctypes.CDLL:
     lib = _build.load(FUSE_SOURCE)
-    # planes, geometry, canvas (..., planes per block, row bands), stream
+    # planes, geometry, canvas, then the plan's ints, then the stream
     head = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    tail = head + [ctypes.c_void_p]
     for suffix in _DTYPE_SUFFIX.values():
         fwd = getattr(lib, f"tpgan_fuse_parts_{suffix}")
         fwd.argtypes = [ctypes.c_void_p] * 5 + head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"tpgan_fuse_parts_bwd_{suffix}")
-        bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.POINTER(ctypes.c_void_p)] + tail
+        # parts, g, g's batch and channel strides, channels, grads
+        bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)] \
+            + head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
 
@@ -265,48 +327,56 @@ def _launch_fuse(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _launch_fuse_bwd(
-    parts: Sequence[torch.Tensor], out: torch.Tensor, g: torch.Tensor
-) -> List[torch.Tensor]:
-    """The backward kernel. ``g`` arrives in the canvas dtype and may be
-    non-contiguous (autograd hands on what the consumer produced): it is
-    made contiguous here, one copy, never a fallback."""
-    if g.dtype != out.dtype:
-        raise TypeError(f"fuse_parts backward: g is {g.dtype}, the canvas {out.dtype}")
-    g = g.contiguous()
-    suffix = _check_launchable("fuse_parts backward", [*parts, out, g])
+def _launch_fuse_bwd(parts: Sequence[torch.Tensor], g: torch.Tensor) -> List[torch.Tensor]:
+    """The backward kernel: the canvas is recomputed from the parts. ``g``
+    is taken as autograd hands it, in the parts' dtype, when its rows are
+    dense (strides 128 and 1 in H and W; any batch and channel strides);
+    any other layout is made contiguous first, one copy counted in
+    ``copy_counts()["fuse_parts_bwd_g"]`` — the kernel still runs."""
+    suffix = _check_launchable("fuse_parts backward", parts)
+    b, c = parts[0].shape[:2]
+    if g.dtype != parts[0].dtype:
+        raise TypeError(f"fuse_parts backward: g is {g.dtype}, the parts {parts[0].dtype}")
+    if tuple(g.shape) != (b, c, CANVAS_SIZE, CANVAS_SIZE) or g.device != parts[0].device:
+        raise ValueError(f"fuse_parts backward: g is {tuple(g.shape)} on {g.device}, expected "
+                         f"{(b, c, CANVAS_SIZE, CANVAS_SIZE)} on {parts[0].device}")
+    if g.stride(3) != 1 or g.stride(2) != CANVAS_SIZE:
+        g = g.contiguous()
+        _COPIES["fuse_parts_bwd_g"] += 1
     grads = [torch.empty_like(p) for p in parts]
-    if out.numel() == 0:
+    if b * c == 0:
         return grads
     fn = getattr(_fuse_lib(), f"tpgan_fuse_parts_bwd_{suffix}")
+    plan = fuse_parts_bwd_plan(b * c, g.dtype)
     parts_arg = (ctypes.c_void_p * 4)(*(p.data_ptr() for p in parts))
     grads_arg = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in grads))
-    b, c = out.shape[:2]
-    with torch.cuda.device(out.device):
-        err = fn(parts_arg, out.data_ptr(), g.data_ptr(), grads_arg,
-                 b * c, _geometry_arg(), CANVAS_SIZE, _stream())
+    with torch.cuda.device(g.device):
+        err = fn(parts_arg, g.data_ptr(), g.stride(0), g.stride(1), c, grads_arg, b * c,
+                 _geometry_arg(), CANVAS_SIZE, plan.band_rows, plan.smem_bytes, _stream())
     _raise_on(err, "fuse_parts backward")
     _LAUNCHES["fuse_parts_bwd"] += 1
     return grads
 
 
 class _FuseParts(torch.autograd.Function):
+    """Saves only the four parts: the backward recomputes the canvas (in
+    the kernel on the card, with ``fuse_parts_plain`` on the CPU), so the
+    canvas can be freed once its consumer is done with it."""
+
     @staticmethod
     def forward(ctx, le, re, no, mo):
         parts = (le, re, no, mo)
+        ctx.save_for_backward(*parts)
         if _dispatch(le, "fuse_parts"):
-            out = _launch_fuse(parts)
-        else:
-            out = fuse_parts_plain(*parts)
-        ctx.save_for_backward(*parts, out)
-        return out
+            return _launch_fuse(parts)
+        return fuse_parts_plain(*parts)
 
     @staticmethod
     def backward(ctx, g):
-        *parts, out = ctx.saved_tensors
-        if _dispatch(out, "fuse_parts backward"):
-            return tuple(_launch_fuse_bwd(parts, out, g))
-        return tuple(fuse_parts_bwd_plain(parts, out, g))
+        parts = ctx.saved_tensors
+        if _dispatch(parts[0], "fuse_parts backward"):
+            return tuple(_launch_fuse_bwd(parts, g))
+        return tuple(fuse_parts_bwd_plain(parts, fuse_parts_plain(*parts), g))
 
 
 def fuse_parts(
@@ -387,41 +457,76 @@ def _check_image(x: torch.Tensor) -> None:
         raise ValueError(f"symmetry_tv_losses takes NCHW with H, W >= 2, got {tuple(x.shape)}")
 
 
+SYM_TV_THREADS = 256  # threads per block of the forward kernel
+# At most one block per 256-thread slot of an H100 (132 SMs x 2,048
+# threads); a larger x takes more than one chunk per thread.
+SYM_TV_MAX_BLOCKS = 8 * 132
+
+
+class SymTVPlan(NamedTuple):
+    chunk: int  # elements per thread item: 16 bytes' worth, or 1
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def sym_tv_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+                x_ptr_mod16: int = 0) -> SymTVPlan:
+    """The forward kernel's launch for an NCHW x: 16-byte chunks of rows
+    when W is a multiple of one and x is 16-byte aligned, else single
+    elements; one thread per item, up to ``SYM_TV_MAX_BLOCKS`` blocks.
+    The grid depends on the shape alone, so the summation order does."""
+    b, c, h, w = shape
+    per = 16 // dtype.itemsize
+    chunk = per if w % per == 0 and x_ptr_mod16 == 0 else 1
+    items = b * c * h * w // chunk
+    return SymTVPlan(chunk, max(1, min(-(-items // SYM_TV_THREADS), SYM_TV_MAX_BLOCKS)))
+
+
 @functools.lru_cache(maxsize=None)
 def _sym_tv_lib() -> ctypes.CDLL:
     lib = _build.load(SYM_TV_SOURCE)
-    lib.tpgan_sym_tv_rows_per_block.restype = ctypes.c_int
-    dims = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    dims = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     for suffix in _DTYPE_SUFFIX.values():
         fwd = getattr(lib, f"tpgan_sym_tv_sums_{suffix}")
-        fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + dims
+        fwd.argtypes = [ctypes.c_void_p] * 3 + dims + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"tpgan_sym_tv_bwd_{suffix}")
-        bwd.argtypes = [ctypes.c_void_p] * 4 + dims
+        bwd.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
 
 
+# Per device: the forward's scratch, an unsigned counter that every launch
+# leaves at 0 and 3 f32 partials per block from element 4 on. Made once
+# (zeroed) and reused by every call on the device's stream.
+_SYM_TV_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def _sym_tv_scratch(device: torch.device) -> torch.Tensor:
+    if device not in _SYM_TV_SCRATCH:
+        _SYM_TV_SCRATCH[device] = torch.zeros(4 + 3 * SYM_TV_MAX_BLOCKS, dtype=torch.int32,
+                                              device=device)
+    return _SYM_TV_SCRATCH[device]
+
+
 def _launch_sym_tv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(sums (3,), sym, tv) from the forward kernel."""
+    """(sums (3,), sym, tv) from the forward kernel: views of one 5-float
+    buffer."""
     suffix = _check_launchable("symmetry_tv_losses", [x])
+    if x.numel() >= 2**31:
+        raise ValueError(f"symmetry_tv_losses kernel uses 32-bit indices; x {tuple(x.shape)} "
+                         "is too large")
     b, c, h, w = x.shape
-    lib = _sym_tv_lib()
-    rows = b * c * h
-    nblocks = -(-rows // lib.tpgan_sym_tv_rows_per_block())
-    if not 0 < nblocks < 2**31:
-        raise ValueError(f"symmetry_tv_losses kernel cannot take shape {tuple(x.shape)}")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partials = torch.empty(3 * nblocks, **f32)
-    sums, sym, tv = torch.empty(3, **f32), torch.empty((), **f32), torch.empty((), **f32)
+    plan = sym_tv_plan(tuple(x.shape), x.dtype, x.data_ptr() % 16)
+    out = torch.empty(5, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"tpgan_sym_tv_sums_{suffix}")(
-            x.data_ptr(), partials.data_ptr(), nblocks, sums.data_ptr(), sym.data_ptr(),
-            tv.data_ptr(), b * c, h, w, _stream(),
+        err = getattr(_sym_tv_lib(), f"tpgan_sym_tv_sums_{suffix}")(
+            x.data_ptr(), out.data_ptr(), _sym_tv_scratch(x.device).data_ptr(), b * c, h, w,
+            plan.blocks, plan.chunk, _stream(),
         )
     _raise_on(err, "symmetry_tv_losses")
     _LAUNCHES["sym_tv"] += 1
-    return sums, sym, tv
+    return out[:3], out[3], out[4]
 
 
 def _launch_sym_tv_bwd(
