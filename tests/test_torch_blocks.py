@@ -12,9 +12,11 @@ import jax.numpy as jnp
 
 from tpgan_tpu.ops import blocks as jb
 from tpgan_tpu.ops import initializers as jinit
-from tpgan_tpu.ops.activations import LEAKY_RELU, RELU, SIGMOID, TANH
+from tpgan_tpu.ops.activations import LEAKY_RELU, RELU, RELU6, SIGMOID, TANH
+from tpgan_tpu.ops.activations import apply_activation as japply
 from tpgan_tpu_torch.ops import blocks as tb
 from tpgan_tpu_torch.ops import initializers as tinit
+from tpgan_tpu_torch.ops.activations import apply_activation as tapply
 
 from _torch_port import init_numpy, jax_variables, load_port, nchw, nhwc
 
@@ -213,3 +215,46 @@ def test_seeded_init_is_reproducible():
 
     assert torch.equal(draw(3), draw(3))
     assert not torch.equal(draw(3), draw(4))
+
+
+# RELU6's corners (0 and 6) and values on both sides of each; 6 ± 0.01 and
+# 6 ± 1/64 round to 6.0 in bf16 (its spacing there is 1/32)
+_RELU6_X = np.array([0.0, 6.0, 3.0, -1.0, 7.0, 1e-3, -1e-3, 5.99, 6.01, 6 - 1 / 64, 6 + 1 / 64],
+                    np.float32)
+
+
+def _relu6_grads(dtype, port_act):
+    """(x as rounded to ``dtype``, JAX's gradient, the port's gradient) of
+    sum(relu6(x)), both in f32; ``port_act`` is the port's relu6."""
+    jx = jnp.asarray(_RELU6_X, dtype)
+    want = jax.grad(lambda v: japply(v, RELU6).astype(jnp.float32).sum())(jx)
+    x = np.array(jx.astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    port_act(tx).float().sum().backward()
+    assert tx.grad.dtype == tx.dtype
+    return x, np.asarray(want.astype(jnp.float32)), tx.grad.float().numpy()
+
+
+def _check_relu6_grad(dtype, port_act):
+    x, want, got = _relu6_grads(dtype, port_act)
+    np.testing.assert_array_equal(got, want)
+    corners = (x == 0.0) | (x == 6.0)
+    np.testing.assert_array_equal(got[corners], 0.5)  # jnp.clip's minimum/maximum split ties
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relu6_gradient_matches_jax_grad_at_corners(dtype):
+    x = _check_relu6_grad(dtype, lambda t: tapply(t, RELU6))
+    corners = int(((x == 0.0) | (x == 6.0)).sum())
+    assert corners == (2 if dtype == "float32" else 6)  # bf16: 6 ± 0.01 and 6 ± 1/64 too
+    np.testing.assert_array_equal(
+        tapply(torch.from_numpy(x), RELU6).numpy(), np.clip(x, 0.0, 6.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relu6_gradient_check_catches_torch_clamp(dtype):
+    """``torch.clamp``'s backward gives 1 at both corners: the check above
+    fails on it, so a revert to it is caught."""
+    with pytest.raises(AssertionError):
+        _check_relu6_grad(dtype, lambda t: torch.clamp(t, 0.0, 6.0))

@@ -264,7 +264,7 @@ def test_sym_tv_kernels_equal_plain_versions(cuda, dtype):
     dx = kernels._launch_sym_tv_bwd(x, g_sym, g_tv)
     torch.cuda.synchronize()
     assert dx.dtype == dtype
-    torch.testing.assert_close(dx, kernels.sym_tv_bwd_plain(x, g_sym, g_tv), rtol=1e-6, atol=0)
+    assert _same(dx, kernels.sym_tv_bwd_plain(x, g_sym, g_tv))
     after = kernels.launch_counts()
     assert after["sym_tv"] == before["sym_tv"] + 2
     assert after["sym_tv_bwd"] == before["sym_tv_bwd"] + 1
@@ -272,8 +272,115 @@ def test_sym_tv_kernels_equal_plain_versions(cuda, dtype):
     x[1, 2, 5, 5] = float("nan")
     _, sym_nan, _ = kernels._launch_sym_tv(x)
     assert torch.isnan(sym_nan)
-    torch.testing.assert_close(kernels._launch_sym_tv_bwd(x, g_sym, g_tv),
-                               kernels.sym_tv_bwd_plain(x, g_sym, g_tv), rtol=1e-6, atol=0)
+    assert _same(kernels._launch_sym_tv_bwd(x, g_sym, g_tv),
+                 kernels.sym_tv_bwd_plain(x, g_sym, g_tv))
+
+
+def _same(a, b):
+    """torch.equal, NaN-aware."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def _bwd_image(shape, dtype, device, seed=0):
+    """An NCHW x with the ties the K2 backward's layout makes hard: at each
+    16-byte chunk boundary, at the row ends, between one row's last
+    element and the next row's first (bf16 lanes 15/16 and 31/0, f32 lanes
+    31/0 of a warp), between the rows at band boundaries (rows 1, 2, 4
+    and 8: bands of 1 and 4 rows) and at the plane's first and last rows,
+    with a column's mirror; zeros and a NaN."""
+    b, c, h, w = shape
+    per = 16 // torch.tensor([], dtype=dtype).element_size()
+    x = np.random.RandomState(seed).uniform(-1, 1, shape).astype(np.float32)
+    for col in range(per, w, per):  # chunk boundaries
+        x[..., col] = x[..., col - 1]
+    x[..., 1] = x[..., 0]
+    x[..., w - 2] = x[..., w - 1]
+    x[:, :, 1:, 0] = x[:, :, :-1, w - 1]  # across the row boundary
+    for y in (1, 2, 4, 8, h - 1):  # band boundaries and the plane's last row
+        if y < h:
+            x[:, :, y] = x[:, :, y - 1]
+    if w > 7:
+        x[..., w - 4] = x[..., 3]  # mirror ties
+    x[0, 0, :2, :2] = 0.0
+    x[-1, -1, h // 2, w // 2] = np.nan
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _check_sym_tv_bwd(x, variant):
+    """The K2 backward against its plain version, bit for bit; one launch,
+    of ``variant``."""
+    g_sym, g_tv = torch.tensor(0.3, device=x.device), torch.tensor(0.007, device=x.device)
+    launches = kernels.launch_counts()["sym_tv_bwd"]
+    variants = kernels.sym_tv_bwd_variant_counts()
+    dx = kernels._launch_sym_tv_bwd(x, g_sym, g_tv)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sym_tv_bwd"] == launches + 1
+    assert kernels.sym_tv_bwd_variant_counts() == {**variants, variant: variants[variant] + 1}
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert _same(dx, kernels.sym_tv_bwd_plain(x, g_sym, g_tv))
+    # another upstream pair: the scalars are read from device memory
+    g_sym, g_tv = torch.tensor(-1.5, device=x.device), torch.tensor(2.0, device=x.device)
+    assert _same(kernels._launch_sym_tv_bwd(x, g_sym, g_tv),
+                 kernels.sym_tv_bwd_plain(x, g_sym, g_tv))
+
+
+@pytest.mark.parametrize("shape,dtype,variant,lanes", [
+    ((16, 3, 128, 128), torch.bfloat16, "banded", 16),  # the train step at batch 16
+    ((64, 3, 128, 128), torch.bfloat16, "banded", 16),  # batch 64
+    ((8, 3, 128, 128), torch.float32, "banded", 32),  # the f32 step at batch 8
+    ((1, 3, 128, 128), torch.bfloat16, "banded", 16),  # B = 1
+    ((3, 1, 128, 128), torch.bfloat16, "banded", 16),  # B*C odd
+    ((5, 3, 128, 128), torch.float32, "banded", 32),
+    ((2, 3, 13, 128), torch.bfloat16, "banded", 16),  # H not a multiple of any band
+    ((2, 3, 9, 24), torch.bfloat16, "banded", 4),  # 3 chunks in a group of 4 lanes
+    ((2, 3, 16, 12), torch.float32, "banded", 4),
+    ((2, 3, 10, 256), torch.bfloat16, "banded", 32),  # a row of 32 chunks
+    ((2, 3, 5, 8), torch.bfloat16, "banded", 1),  # a row of one chunk
+    ((2, 3, 7, 5), torch.bfloat16, "general", 0),  # W not a multiple of a chunk
+    ((2, 3, 7, 5), torch.float32, "general", 0),
+    ((2, 2, 6, 264), torch.float32, "general", 0),  # 66 chunks: wider than a warp
+    ((2, 3, 12, 2), torch.bfloat16, "general", 0),
+])
+def test_sym_tv_backward_kernel_equals_plain_version(cuda, shape, dtype, variant, lanes):
+    plan = kernels.sym_tv_bwd_plan(shape, dtype)
+    assert (plan.variant, plan.lanes_per_row) == (variant, lanes)
+    _check_sym_tv_bwd(_bwd_image(shape, dtype, cuda, seed=sum(shape)), variant)
+
+
+@pytest.mark.parametrize("shape,dtype,band_rows", [
+    ((16, 3, 128, 128), torch.bfloat16, 1), ((8, 3, 128, 128), torch.float32, 1),
+    ((64, 3, 128, 128), torch.bfloat16, 4), ((64, 3, 128, 128), torch.float32, 4),
+    ((2, 3, 13, 128), torch.bfloat16, 1),
+    ((96, 3, 126, 128), torch.bfloat16, 4),  # the last band of each plane is short
+    ((176, 3, 13, 128), torch.float32, 4),
+    ((1024, 3, 24, 24), torch.bfloat16, 4),  # 3 chunks in a group of 4 lanes
+])
+def test_sym_tv_backward_kernel_takes_every_band_length(cuda, shape, dtype, band_rows):
+    assert kernels.sym_tv_bwd_plan(shape, dtype).band_rows == band_rows
+    _check_sym_tv_bwd(_bwd_image(shape, dtype, cuda, seed=band_rows), "banded")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sym_tv_backward_misaligned_x_takes_the_general_kernel(cuda, dtype):
+    x = _bwd_image((4, 3, 128, 128), dtype, cuda, seed=3)
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert kernels.sym_tv_bwd_plan(tuple(x.shape), dtype, shifted.data_ptr() % 16).variant \
+        == "general"
+    _check_sym_tv_bwd(shifted, "general")
+    _check_sym_tv_bwd(x, "banded")
+
+
+def test_sym_tv_backward_is_one_launch(cuda):
+    x = _bwd_image((16, 3, 128, 128), torch.bfloat16, cuda)
+    g = torch.tensor(1.0, device=cuda)
+    kernels._launch_sym_tv_bwd(x, g, g)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernels._launch_sym_tv_bwd(x, g, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len([n for n in names if "sym_tv_bwd" in n]) == 1, names
 
 
 @pytest.mark.parametrize("shape,dtype", [

@@ -205,3 +205,62 @@ def test_sym_tv_forward_launch_plan(shape, dtype, mod16, chunk, blocks):
     # one thread per item while the blocks allow it, never an empty block
     assert (plan.blocks - 1) * kernels.SYM_TV_THREADS < items
     assert plan.blocks == kernels.SYM_TV_MAX_BLOCKS or plan.blocks * kernels.SYM_TV_THREADS >= items
+
+
+@pytest.mark.parametrize("shape,dtype,x_mod16,dx_mod16,variant,lanes,band_rows", [
+    ((16, 3, 128, 128), torch.bfloat16, 0, 0, "banded", 16, 1),  # the train step at batch 16
+    ((64, 3, 128, 128), torch.bfloat16, 0, 0, "banded", 16, 4),  # batch 64
+    ((8, 3, 128, 128), torch.float32, 0, 0, "banded", 32, 1),  # the f32 step at batch 8
+    ((16, 3, 128, 128), torch.float32, 0, 0, "banded", 32, 1),
+    ((64, 3, 128, 128), torch.float32, 0, 0, "banded", 32, 4),
+    ((32, 3, 128, 128), torch.bfloat16, 0, 0, "banded", 16, 1),  # 4-row bands: 192 blocks
+    ((1024, 3, 24, 24), torch.bfloat16, 0, 0, "banded", 4, 4),  # 4-row bands of narrow rows
+    ((1, 3, 128, 128), torch.bfloat16, 0, 0, "banded", 16, 1),  # B = 1: too few blocks to fill
+    ((3, 1, 128, 128), torch.bfloat16, 0, 0, "banded", 16, 1),  # B*C odd
+    ((2, 3, 9, 24), torch.bfloat16, 0, 0, "banded", 4, 1),  # 3 chunks in a group of 4 lanes
+    ((2, 3, 10, 256), torch.bfloat16, 0, 0, "banded", 32, 1),  # 32 chunks: a whole warp
+    ((2, 3, 5, 8), torch.bfloat16, 0, 0, "banded", 1, 1),  # one chunk per row
+    ((2, 3, 7, 5), torch.float32, 0, 0, "general", 0, 0),  # W not a multiple of a chunk
+    ((2, 3, 16, 12), torch.bfloat16, 0, 0, "general", 0, 0),  # 12 bf16: 24 bytes
+    ((2, 2, 6, 264), torch.float32, 0, 0, "general", 0, 0),  # 66 chunks: wider than a warp
+    ((16, 3, 128, 128), torch.bfloat16, 2, 0, "general", 0, 0),  # x misaligned
+    ((16, 3, 128, 128), torch.bfloat16, 0, 8, "general", 0, 0),  # dx misaligned
+])
+def test_sym_tv_backward_launch_plan(shape, dtype, x_mod16, dx_mod16, variant, lanes, band_rows):
+    plan = kernels.sym_tv_bwd_plan(shape, dtype, x_mod16, dx_mod16)
+    assert (plan.variant, plan.lanes_per_row, plan.band_rows) == (variant, lanes, band_rows)
+    b, c, h, w = shape
+    if variant == "banded":
+        assert w // (16 // dtype.itemsize) <= lanes < 2 * w // (16 // dtype.itemsize)
+        groups = kernels.SYM_TV_THREADS // lanes  # one (plane, band) per lane group
+        tasks = b * c * -(-h // band_rows)
+        # every task has a group, and no block is empty
+        assert plan.blocks * groups >= tasks > (plan.blocks - 1) * groups
+        # the longest compiled band that still fills the card, else the shortest
+        longer = [r for r in kernels.SYM_TV_BWD_BAND_ROWS if band_rows < r <= h]
+        assert all(-(-b * c * -(-h // r) // groups) < kernels.SYM_TV_BWD_FILL_BLOCKS
+                   for r in longer)
+        assert plan.blocks >= kernels.SYM_TV_BWD_FILL_BLOCKS \
+            or band_rows == kernels.SYM_TV_BWD_BAND_ROWS[0]
+    else:
+        n = b * c * h * w
+        assert (plan.blocks - 1) * kernels.SYM_TV_THREADS < n
+        assert plan.blocks <= kernels.SYM_TV_BWD_MAX_BLOCKS
+
+
+@pytest.mark.parametrize("shape,dtype,band_rows,blocks", [
+    ((16, 3, 128, 128), torch.bfloat16, 1, 384),  # 16 rows per 256-thread block
+    ((64, 3, 128, 128), torch.bfloat16, 4, 384),
+])
+def test_sym_tv_backward_plan_reaches_each_band_length(shape, dtype, band_rows, blocks):
+    """Each compiled band length is the plan's choice at a main-path shape."""
+    assert kernels.SYM_TV_BWD_BAND_ROWS == (1, 4)
+    assert kernels.sym_tv_bwd_plan(shape, dtype) == ("banded", 16, band_rows, blocks)
+
+
+def test_sym_tv_backward_plan_refuses_2_to_the_31_elements():
+    kernels.sym_tv_bwd_plan((2**31 // (3 * 128 * 128), 3, 128, 128), torch.bfloat16)
+    with pytest.raises(ValueError, match="32-bit indices"):
+        kernels.sym_tv_bwd_plan((2**31 // (3 * 128 * 128) + 1, 3, 128, 128), torch.bfloat16)
+    with pytest.raises(ValueError, match="32-bit indices"):
+        kernels.sym_tv_bwd_plan((1, 1, 2**16, 2**15), torch.float32)

@@ -31,7 +31,7 @@
 // wrapper allocates once and zeroes; two calls at once on two streams would
 // share it, which the port never does (it runs on one stream).
 //
-// Backward: one elementwise pass. It reads x and the two upstream scalars
+// Backward: one pass over x. It reads x and the two upstream scalars
 // g_sym and g_tv from device memory (no host round trip) and writes dx in
 // x's dtype, computed in f32 and rounded once. The sign follows JAX's abs
 // rule, s(d) = d >= 0 ? +1 : -1 (so s(0) = +1; torch's abs backward gives
@@ -40,9 +40,30 @@
 //      + b (s(x[h] - x[h-1]) - s(x[h+1] - x[h]))      (terms that exist)
 //      + c (s(x[w] - x[w-1]) - s(x[w+1] - x[w]))
 // with a = g_sym / n_sym, b = g_tv / n_h, c = g_tv / n_w. Each bracket is
-// an exact small integer, so only the two adds round, in this order.
-// Bound: bytes, x read once and dx written once (12.6 MB at B=64 bf16:
-// 3.8 us).
+// an exact small integer and each product with it exact, so only the two
+// adds round, in this order: the result is bit-equal to the plain version.
+// Bound: bytes, x read once and dx written once (3.1 MB at B=16 bf16:
+// 0.94 us; 12.6 MB at B=64: 3.8 us), so at B=16 the launch is most of it.
+// Design ("banded", sym_tv_bwd_plan): a group of lanes_per_row lanes (a
+// power of two: 16 for a bf16 row of 128, 32 for f32) owns one image row,
+// one 16-byte chunk per lane, and walks a band of kR rows of one plane.
+// Each lane loads its chunk of the kR rows and of the two halo rows above
+// and below, all before any arithmetic (16-byte loads, so every element
+// of x is read once plus two halo rows per band), and keeps them in
+// registers: the vertical signs of a pair of rows serve both rows. The
+// mirrored chunk is the same row's chunk of lane (G - 1 - k) of the group
+// (G chunks per row): four word shuffles and a reversal in registers, no
+// second load. The left and right neighbours of a chunk's ends are one
+// element shuffled from lanes k - 1 and k + 1; shuffles run with the
+// group's width, so a bf16 warp's two rows never mix, and the row's ends
+// take no term. dx leaves in one 16-byte store per chunk. Every loop has
+// the same trip count for the whole warp (the shuffles need every lane):
+// lanes past the row, past H or past the last band compute on zeros and
+// store nothing. 32-bit indices (the wrapper refuses 2^31 elements).
+// Shapes the banded kernel does not take (W not a multiple of a chunk, a
+// row of more than 32 chunks, x or dx not 16-byte aligned) run the
+// "general" kernel: one element per thread, 32-bit indices; the plan names
+// it and the wrapper counts its launches apart.
 //
 // The kernels launch on the caller's stream, do not synchronise and
 // allocate nothing (the wrapper allocates outputs and the scratch); each
@@ -203,31 +224,136 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+// A 16-byte chunk as kV floats, and back (rounded once to T)
+template <typename T, int kV>
+__device__ __forceinline__ void unpack(const uint4& raw, float* v) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) v[i] = to_float(e[i]);
+}
+
+template <typename T, int kV>
+__device__ __forceinline__ uint4 pack(const float* v) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) e[i] = from_float<T>(v[i]);
+  return raw;
+}
+
+// d = (a (s(v - m) - s(m - v)) + b kh) + c kw, the plain version's order
+__device__ __forceinline__ float bwd_value(float v, float m, float kh, float kw, float a, float b,
+                                           float c) {
+  const float d_sym = a * (sgn(v - m) - sgn(m - v));
+  return (d_sym + b * kh) + c * kw;
+}
+
+// Banded backward: lanes_per_row = 1 << lanes_log2 lanes per row (chunks =
+// w / kV of them live), kR rows per band, bands = ceil(h / kR) per plane,
+// one group per (plane, band) task in task order.
+template <typename T, int kR>
 __global__ void __launch_bounds__(kThreads)
     sym_tv_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g_sym,
-                      const float* __restrict__ g_tv, T* __restrict__ dx, long long total, int h,
-                      int w, long long n_sym, long long n_h, long long n_w) {
+                      const float* __restrict__ g_tv, T* __restrict__ dx, int tasks, int bands,
+                      int h, int w, int lanes_log2, int n_sym, int n_h, int n_w) {
+  constexpr int kV = 16 / sizeof(T);
+  const int lanes = 1 << lanes_log2;
+  const int k = threadIdx.x & (lanes - 1);  // this lane's chunk of the row
+  const int task = static_cast<int>((blockIdx.x * kThreads + threadIdx.x) >> lanes_log2);
+  const int chunks = w / kV;
+  const bool live = task < tasks && k < chunks;
+  const int plane = live ? task / bands : 0;
+  const int y0 = live ? (task - plane * bands) * kR : 0;
+  const int base = plane * h * w + k * kV;  // element (plane, 0, k * kV)
+  // rows y0 - 1 .. y0 + kR: the band and its two halo rows, loaded first
+  uint4 raw[kR + 2];
+#pragma unroll
+  for (int i = 0; i < kR + 2; ++i) {
+    const int y = y0 - 1 + i;
+    raw[i] = live && y >= 0 && y < h ? __ldg(reinterpret_cast<const uint4*>(x + base + y * w))
+                                     : make_uint4(0u, 0u, 0u, 0u);
+  }
   const float a = *g_sym / static_cast<float>(n_sym);
   const float b = *g_tv / static_cast<float>(n_h);
   const float c = *g_tv / static_cast<float>(n_w);
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < total;
-       i += stride) {
-    const long long r = i / w;
-    const int col = static_cast<int>(i - r * w);
-    const int y = static_cast<int>(r % h);
-    const T* row = x + r * w;
+  const unsigned full = 0xffffffffu;
+  const int mirror_lane = chunks - 1 - k;  // taken modulo lanes past the row
+  float cur[kV], dn[kV], s_up[kV], s_dn[kV];
+  {
+    float up[kV];
+    unpack<T, kV>(raw[0], up);
+    unpack<T, kV>(raw[1], cur);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) s_up[e] = sgn(cur[e] - up[e]);
+  }
+#pragma unroll
+  for (int r = 1; r <= kR; ++r) {
+    const int y = y0 + r - 1;
+    unpack<T, kV>(raw[r + 1], dn);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) s_dn[e] = sgn(dn[e] - cur[e]);
+    uint4 mraw;  // the mirrored chunk, in its own element order
+    mraw.x = __shfl_sync(full, raw[r].x, mirror_lane, lanes);
+    mraw.y = __shfl_sync(full, raw[r].y, mirror_lane, lanes);
+    mraw.z = __shfl_sync(full, raw[r].z, mirror_lane, lanes);
+    mraw.w = __shfl_sync(full, raw[r].w, mirror_lane, lanes);
+    float m[kV];
+    unpack<T, kV>(mraw, m);
+    const float left = __shfl_up_sync(full, cur[kV - 1], 1, lanes);  // lane k - 1's last
+    const float right = __shfl_down_sync(full, cur[0], 1, lanes);    // lane k + 1's first
+    const bool has_up = y > 0, has_down = y < h - 1;
+    const float s_left = sgn(cur[0] - left), s_right = sgn(right - cur[kV - 1]);
+    float out[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      float kh = 0.0f, kw = 0.0f;
+      if (has_up) kh += s_up[e];
+      if (has_down) kh -= s_dn[e];
+      if (e > 0) {
+        kw += sgn(cur[e] - cur[e - 1]);
+      } else if (k > 0) {
+        kw += s_left;
+      }
+      if (e < kV - 1) {
+        kw -= sgn(cur[e + 1] - cur[e]);
+      } else if (k < chunks - 1) {
+        kw -= s_right;
+      }
+      out[e] = bwd_value(cur[e], m[kV - 1 - e], kh, kw, a, b, c);
+    }
+    if (live && y < h) *reinterpret_cast<uint4*>(dx + base + y * w) = pack<T, kV>(out);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      cur[e] = dn[e];
+      s_up[e] = s_dn[e];
+    }
+  }
+}
+
+// General backward: one element per thread, grid-striding, 32-bit indices
+// (unsigned: total < 2^31 and the stride < 2^31, so i + stride cannot wrap).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sym_tv_bwd_general_kernel(const T* __restrict__ x, const float* __restrict__ g_sym,
+                              const float* __restrict__ g_tv, T* __restrict__ dx,
+                              unsigned int total, int h, int w, int n_sym, int n_h, int n_w) {
+  const float a = *g_sym / static_cast<float>(n_sym);
+  const float b = *g_tv / static_cast<float>(n_h);
+  const float c = *g_tv / static_cast<float>(n_w);
+  const unsigned int uw = static_cast<unsigned int>(w);
+  const unsigned int stride = gridDim.x * kThreads;
+  for (unsigned int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += stride) {
+    const unsigned int r = i / uw;
+    const int col = static_cast<int>(i - r * uw);
+    const int y = static_cast<int>(r % static_cast<unsigned int>(h));
+    const T* row = x + r * uw;
     const float v = to_float(row[col]);
-    const float m = to_float(row[w - 1 - col]);
-    const float d_sym = a * (sgn(v - m) - sgn(m - v));
     float kh = 0.0f, kw = 0.0f;
     if (y > 0) kh += sgn(v - to_float(row[col - w]));
     if (y < h - 1) kh -= sgn(to_float(row[col + w]) - v);
     if (col > 0) kw += sgn(v - to_float(row[col - 1]));
     if (col < w - 1) kw -= sgn(to_float(row[col + 1]) - v);
-    const float d = (d_sym + b * kh) + c * kw;
-    dx[i] = from_float<T>(d);
+    dx[i] = from_float<T>(bwd_value(v, to_float(row[w - 1 - col]), kh, kw, a, b, c));
   }
 }
 
@@ -261,14 +387,37 @@ int launch_sums(const void* x, float* out, void* scratch, long long planes, int 
 }
 
 template <typename T>
-int launch_bwd(const void* x, const float* g_sym, const float* g_tv, void* dx, long long planes,
-               int h, int w, void* stream) {
+int launch_bwd(const void* x, const float* g_sym, const float* g_tv, void* dx, int planes, int h,
+               int w, int lanes, int band_rows, int blocks, void* stream) {
+  constexpr int kV = 16 / sizeof(T);
   long long n_h, n_w;
   const long long n_sym = counts(planes, h, w, &n_h, &n_w);
-  const long long want = (n_sym + kThreads - 1) / kThreads;
-  const unsigned int blocks = static_cast<unsigned int>(want < 1048576 ? want : 1048576);
-  sym_tv_bwd_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), g_sym, g_tv, static_cast<T*>(dx), n_sym, h, w, n_sym, n_h, n_w);
+  if (planes < 1 || h < 2 || w < 2 || n_sym >= (1ll << 31) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  T* dxt = static_cast<T*>(dx);
+  const int ns = static_cast<int>(n_sym), nh = static_cast<int>(n_h), nw = static_cast<int>(n_w);
+  if (lanes == 0) {  // the general kernel
+    sym_tv_bwd_general_kernel<T><<<blocks, kThreads, 0, s>>>(
+        xt, g_sym, g_tv, dxt, static_cast<unsigned int>(n_sym), h, w, ns, nh, nw);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void (*kernel)(const T*, const float*, const float*, T*, int, int, int, int, int, int, int,
+                 int) = band_rows == 1   ? sym_tv_bwd_kernel<T, 1>
+                        : band_rows == 4 ? sym_tv_bwd_kernel<T, 4>
+                                         : nullptr;
+  int lanes_log2 = 0;
+  while (lanes_log2 < 5 && (1 << lanes_log2) < lanes) ++lanes_log2;
+  const int bands = kernel ? (h + band_rows - 1) / band_rows : 0;
+  const long long tasks = static_cast<long long>(planes) * bands;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  if (!kernel || (1 << lanes_log2) != lanes || w % kV != 0 || w / kV > lanes || !aligned ||
+      static_cast<long long>(blocks) * (kThreads / lanes) < tasks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks, kThreads, 0, s>>>(xt, g_sym, g_tv, dxt, static_cast<int>(tasks), bands, h, w,
+                                     lanes_log2, ns, nh, nw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,13 +439,20 @@ extern "C" int tpgan_sym_tv_sums_bf16(const void* x, float* out, void* scratch,
   return launch_sums<__nv_bfloat16>(x, out, scratch, planes, h, w, blocks, chunk, stream);
 }
 
-// g_sym, g_tv: one device float each; dx: like x.
+// g_sym, g_tv: one device float each; dx: like x. lanes, band_rows and
+// blocks from the wrapper's plan (sym_tv_bwd_plan): lanes 0 launches the
+// general kernel on `blocks` blocks; else lanes per row (a power of two, at
+// most 32, covering w / (16 / sizeof(T)) chunks), band_rows 1 or 4,
+// x and dx 16-byte aligned.
 extern "C" int tpgan_sym_tv_bwd_f32(const void* x, const float* g_sym, const float* g_tv,
-                                    void* dx, long long planes, int h, int w, void* stream) {
-  return launch_bwd<float>(x, g_sym, g_tv, dx, planes, h, w, stream);
+                                    void* dx, int planes, int h, int w, int lanes, int band_rows,
+                                    int blocks, void* stream) {
+  return launch_bwd<float>(x, g_sym, g_tv, dx, planes, h, w, lanes, band_rows, blocks, stream);
 }
 
 extern "C" int tpgan_sym_tv_bwd_bf16(const void* x, const float* g_sym, const float* g_tv,
-                                     void* dx, long long planes, int h, int w, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, g_sym, g_tv, dx, planes, h, w, stream);
+                                     void* dx, int planes, int h, int w, int lanes, int band_rows,
+                                     int blocks, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, g_sym, g_tv, dx, planes, h, w, lanes, band_rows, blocks,
+                                   stream);
 }

@@ -29,12 +29,17 @@ def leaky_relu(slope: float) -> Activation:
 
 
 def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
-    """``act`` applied to ``x``. One documented difference in the
-    gradient: at exactly x == 0, ``F.leaky_relu``'s backward gives the
-    slope where ``jax.nn.leaky_relu`` (``where(x >= 0, ...)``) gives 1.
-    The port keeps the single fused torch op: a pre-activation that is
-    exactly 0 needs a biased conv sum to cancel to the last bit, and the
-    train-step parity test (tests/test_torch_train_step.py) meets none."""
+    """``act`` applied to ``x``. RELU6 is built from the two ops that
+    ``jnp.clip`` lowers to, ``minimum(maximum(x, 0), 6)``, so its gradient
+    at the corners x == 0 and x == 6 is JAX's 0.5 (each op splits a tie),
+    where ``torch.clamp``'s backward gives 1 (and ``F.relu6``'s 0); in
+    bf16 every value within 1/64 of 6.0 rounds to the corner. One
+    documented difference remains: at exactly x == 0, ``F.leaky_relu``'s
+    backward gives the slope where ``jax.nn.leaky_relu``
+    (``where(x >= 0, ...)``) gives 1. The port keeps the single fused
+    torch op: a pre-activation that is exactly 0 needs a biased conv sum
+    to cancel to the last bit, and the train-step parity test
+    (tests/test_torch_train_step.py) meets none."""
     if act is None:
         return x
     name, p = act
@@ -43,7 +48,9 @@ def apply_activation(x: torch.Tensor, act: Activation) -> torch.Tensor:
     if name == "leaky_relu":
         return F.leaky_relu(x, negative_slope=p)
     if name == "relu6":
-        return torch.clamp(x, 0.0, 6.0)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        six = torch.full((), 6.0, dtype=x.dtype, device=x.device)
+        return torch.minimum(torch.maximum(x, zero), six)
     if name == "sigmoid":
         return torch.sigmoid(x)
     if name == "tanh":

@@ -32,13 +32,20 @@ forward and backward (source: ``tpgan_tpu_torch/csrc/sym_tv.cu``).
   through ``symmetry_tv_losses``, and its backward ``_sym_tv_bwd``.
 * Bound: bytes. Forward: one read of x, 1.57 MB at B=16 bf16 (0.47 us),
   6.3 MB at B=64 (1.9 us), so a launch is most of its cost. Backward: x
-  read and dx written, 12.6 MB at B=64 (3.8 us).
+  read and dx written, 3.1 MB at B=16 (0.94 us), 12.6 MB at B=64 (3.8 us).
 * Design: the forward is one deterministic launch (``sym_tv_plan``):
   16-byte chunks of rows per thread, per-block partials, and the last
   block to finish (an atomic ticket, no float atomics) sums them in block
-  order and writes the sums and the two means into one 5-float buffer;
-  the backward is one elementwise pass that reads the upstream scalars
-  from device memory and takes sign(0) = +1, JAX's abs rule.
+  order and writes the sums and the two means into one 5-float buffer.
+  The backward (``sym_tv_bwd_plan``) reads the upstream scalars from
+  device memory and takes sign(0) = +1, JAX's abs rule; its "banded"
+  kernel gives each image row to a group of lanes, one 16-byte chunk per
+  lane, which walks a band of rows with the rows above and below in
+  registers, takes the mirrored chunk and the left and right neighbours
+  by warp shuffles and stores 16 bytes per lane; other shapes and
+  misaligned tensors take its "general" kernel, one element per thread.
+  ``sym_tv_bwd_variant_counts`` counts the launches of each; both are
+  bit-equal to ``sym_tv_bwd_plain``.
 
 ``conv3x3_bias_lrelu`` — the fused 3x3 conv + bias + LeakyReLU, forward
 only (source: ``tpgan_tpu_torch/csrc/conv3x3.cu``).
@@ -86,6 +93,10 @@ _LAUNCHES = dict.fromkeys(
 # once under "conv3x3_bias_lrelu" above.
 _CONV3X3_VARIANTS = dict.fromkeys(("tma_wgmma", "mma_sync", "f32"), 0)
 
+# Launches of the K2 backward per kernel variant (``sym_tv_bwd_plan``);
+# each also counts once under "sym_tv_bwd" above.
+_SYM_TV_BWD_VARIANTS = dict.fromkeys(("banded", "general"), 0)
+
 # Copies a wrapper made before a launch: the fuse backward's of a g whose
 # rows are not dense.
 _COPIES = dict.fromkeys(("fuse_parts_bwd_g",), 0)
@@ -106,6 +117,11 @@ def conv3x3_variant_counts() -> Dict[str, int]:
     return dict(_CONV3X3_VARIANTS)
 
 
+def sym_tv_bwd_variant_counts() -> Dict[str, int]:
+    """{K2 backward variant: launches so far}."""
+    return dict(_SYM_TV_BWD_VARIANTS)
+
+
 def copy_counts() -> Dict[str, int]:
     """{input: copies a wrapper made of it before a launch, so far}."""
     return dict(_COPIES)
@@ -113,7 +129,7 @@ def copy_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set the launch, variant and copy counts to 0."""
-    for counts in (_LAUNCHES, _CONV3X3_VARIANTS, _COPIES):
+    for counts in (_LAUNCHES, _CONV3X3_VARIANTS, _SYM_TV_BWD_VARIANTS, _COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -482,6 +498,58 @@ def sym_tv_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
     return SymTVPlan(chunk, max(1, min(-(-items // SYM_TV_THREADS), SYM_TV_MAX_BLOCKS)))
 
 
+# The banded backward kernel's compiled band lengths (rows a lane group
+# walks), and the blocks a launch should reach: the longest band whose
+# grid still has SYM_TV_BWD_FILL_BLOCKS blocks is taken. On the card
+# 1-row bands were the fastest at B=16 (bf16) and B=8 (f32), 4-row bands
+# at B=64 (bf16); 2-row bands were fastest at no shape timed and 8-row
+# bands slower at every one, so neither is compiled.
+SYM_TV_BWD_BAND_ROWS = (1, 4)
+SYM_TV_BWD_FILL_BLOCKS = 2 * 132
+SYM_TV_BWD_MAX_LANES = 32  # a row's chunks stay inside one warp
+# The general kernel grid-strides over elements with at most this many blocks
+SYM_TV_BWD_MAX_BLOCKS = 8 * 132
+
+
+class SymTVBwdPlan(NamedTuple):
+    variant: str  # "banded" or "general"
+    lanes_per_row: int  # banded: lanes per row group, a power of two (0: general)
+    band_rows: int  # banded: rows each group walks (0: general)
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def sym_tv_bwd_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+                    x_mod16: int = 0, dx_mod16: int = 0) -> SymTVBwdPlan:
+    """The backward kernel's launch for an NCHW x. ``banded`` when W is a
+    multiple of a 16-byte chunk, a row has at most 32 chunks and x and dx
+    are 16-byte aligned: one lane per chunk, rows in groups of the next
+    power of two of lanes (a bf16 or f32 row of 128: 16 or 32), each
+    group one band of ``band_rows`` rows of one plane, the longest band of
+    ``SYM_TV_BWD_BAND_ROWS`` (not longer than H) whose grid still has
+    ``SYM_TV_BWD_FILL_BLOCKS`` blocks, else the shortest. Otherwise
+    ``general``: one element per thread, up to ``SYM_TV_BWD_MAX_BLOCKS``.
+    Both index in 32 bits: 2^31 elements or more raise ``ValueError``."""
+    b, c, h, w = shape
+    if b * c * h * w >= 2**31:
+        raise ValueError(f"symmetry_tv_losses backward kernel uses 32-bit indices; x {shape} "
+                         "is too large")
+    per = 16 // dtype.itemsize
+    chunks = w // per
+    if w % per == 0 and chunks <= SYM_TV_BWD_MAX_LANES and x_mod16 == 0 and dx_mod16 == 0:
+        lanes = 1 << (chunks - 1).bit_length()
+        groups = SYM_TV_THREADS // lanes  # per block
+
+        def blocks(band):
+            return -(-b * c * -(-h // band) // groups)
+
+        fits = [r for r in SYM_TV_BWD_BAND_ROWS if r <= h]
+        band = max((r for r in fits if blocks(r) >= SYM_TV_BWD_FILL_BLOCKS), default=fits[0])
+        return SymTVBwdPlan("banded", lanes, band, blocks(band))
+    n = b * c * h * w
+    return SymTVBwdPlan("general", 0, 0, max(1, min(-(-n // SYM_TV_THREADS), SYM_TV_BWD_MAX_BLOCKS)))
+
+
 @functools.lru_cache(maxsize=None)
 def _sym_tv_lib() -> ctypes.CDLL:
     lib = _build.load(SYM_TV_SOURCE)
@@ -491,7 +559,8 @@ def _sym_tv_lib() -> ctypes.CDLL:
         fwd.argtypes = [ctypes.c_void_p] * 3 + dims + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, f"tpgan_sym_tv_bwd_{suffix}")
-        bwd.argtypes = [ctypes.c_void_p] * 4 + dims + [ctypes.c_void_p]
+        # planes, h, w, then the plan's lanes per row, band rows and blocks
+        bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
 
@@ -532,6 +601,7 @@ def _launch_sym_tv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.T
 def _launch_sym_tv_bwd(
     x: torch.Tensor, g_sym: torch.Tensor, g_tv: torch.Tensor
 ) -> torch.Tensor:
+    """dx from the backward kernel ``sym_tv_bwd_plan`` picks."""
     suffix = _check_launchable("symmetry_tv_losses backward", [x])
     for g in (g_sym, g_tv):
         if g.dtype != torch.float32 or g.numel() != 1 or g.device != x.device:
@@ -539,14 +609,18 @@ def _launch_sym_tv_bwd(
                             f"on {x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     b, c, h, w = x.shape
     dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    plan = sym_tv_bwd_plan(tuple(x.shape), x.dtype, x.data_ptr() % 16, dx.data_ptr() % 16)
     g_sym, g_tv = g_sym.contiguous(), g_tv.contiguous()
     with torch.cuda.device(x.device):
         err = getattr(_sym_tv_lib(), f"tpgan_sym_tv_bwd_{suffix}")(
             x.data_ptr(), g_sym.data_ptr(), g_tv.data_ptr(), dx.data_ptr(), b * c, h, w,
-            _stream(),
+            plan.lanes_per_row, plan.band_rows, plan.blocks, _stream(),
         )
-    _raise_on(err, "symmetry_tv_losses backward")
+    _raise_on(err, f"symmetry_tv_losses backward ({plan.variant})")
     _LAUNCHES["sym_tv_bwd"] += 1
+    _SYM_TV_BWD_VARIANTS[plan.variant] += 1
     return dx
 
 

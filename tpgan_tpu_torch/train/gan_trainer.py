@@ -277,20 +277,17 @@ def make_gan_train_step(
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
 
-    def train_step(
-        state: GANTrainState,
-        batch: Batch,
-        generator: torch.Generator,
-        noise: Optional[Mapping[str, ArrayLike]] = None,
-    ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+    def prepare(batch: Batch, generator: torch.Generator, noise=None):
+        """(device NCHW batch, [z, gp_eps, drop_mask_d, drop_mask_g]); both
+        models in train mode."""
         device = g_params[0].device
         batch = _to_device_nchw(batch, device)
-        b = batch["img"].shape[0]
-        z, gp_eps, mask_d, mask_g = draws(b, device, generator, noise)
         gen.train()
         disc.train()
+        return batch, draws(batch["img"].shape[0], device, generator, noise)
 
-        # ---------------- critic update (WGAN-GP) ----------------
+    def d_phase(batch, z, gp_eps, mask_d) -> Dict[str, torch.Tensor]:
+        """The critic's WGAN-GP loss; its gradients go to D's ``.grad``."""
         real = batch["img_frontal"]
         with torch.no_grad():
             fake = g_forward(batch, z, mask_d).img128_fake
@@ -301,9 +298,12 @@ def make_gan_train_step(
         w_loss = discriminator_loss(real_scores, fake_scores)
         d_loss = w_loss + loss_cfg.weight_gradient_penalty * gp
         set_grads(d_params, d_loss)
-        d_opt.step()
+        return {"d_loss": d_loss, "d_wasserstein": w_loss, "d_gradient_penalty": gp,
+                "d_real_mean": real_scores.mean(), "d_fake_mean": fake_scores.mean()}
 
-        # ---------------- generator update ----------------
+    def g_phase(batch, z, mask_g) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(G loss, its components) against the critic as it stands; the
+        gradients go to G's ``.grad``."""
         with torch.no_grad():
             fused_frontal = fuse_parts(*(batch[k] for k in FRONTAL_PATCH_KEYS))
         out = g_forward(batch, z, mask_g)
@@ -324,6 +324,18 @@ def make_gan_train_step(
         )
         g_loss = total_generator_loss(comps, loss_cfg)
         set_grads(g_params, g_loss)
+        return g_loss, comps
+
+    def train_step(
+        state: GANTrainState,
+        batch: Batch,
+        generator: torch.Generator,
+        noise: Optional[Mapping[str, ArrayLike]] = None,
+    ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+        batch, (z, gp_eps, mask_d, mask_g) = prepare(batch, generator, noise)
+        d_metrics = d_phase(batch, z, gp_eps, mask_d)  # critic update (WGAN-GP)
+        d_opt.step()
+        g_loss, comps = g_phase(batch, z, mask_g)  # generator update
         g_opt.step()
 
         if ema_decay > 0.0 and state.g_ema_params:
@@ -333,17 +345,13 @@ def make_gan_train_step(
                 torch._foreach_add_(ema, g_params, alpha=1.0 - ema_decay)
         state.step += 1
 
-        metrics = {
-            "d_loss": d_loss,
-            "g_loss": g_loss,
-            "d_wasserstein": w_loss,
-            "d_gradient_penalty": gp,
-            "d_real_mean": real_scores.mean(),
-            "d_fake_mean": fake_scores.mean(),
-        }
+        metrics = {"d_loss": d_metrics.pop("d_loss"), "g_loss": g_loss, **d_metrics}
         metrics.update({f"g_{k}": v for k, v in comps.items()})
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    # the step's parts, for running one phase alone (the first-step bisect,
+    # tpgan_tpu_torch/examples/first_step_bisect.py)
+    train_step.prepare, train_step.d_phase, train_step.g_phase = prepare, d_phase, g_phase
     return train_step
 
 
