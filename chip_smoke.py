@@ -72,22 +72,61 @@ Phases, each of which exits non-zero on failure:
                  the three head-area shapes, bf16; one JSON line per shape;
                  K3's launches equal the calls the A/B made, per variant; a
                  profile of one kernel call and of the cuDNN call at the
-                 first shape.
+                 first shape;
+10. loop       — ``run_gan_training`` at full size, bf16, batch 16, 4 steps
+                 per dispatch (a CUDA graph of the step), 8 steps with a
+                 checkpoint and a sample grid every 4, then a resume to 12:
+                 every metric finite, the step numbers continue, the
+                 kernels launched eagerly are the warm-up steps' before
+                 each capture and the samples' forwards, the capture
+                 recorded 7 / 2 / 1 / 1 launches per replay; its images/s
+                 beside the eager step's of phase 8;
+11. multi-step — after a warm-up step, K=3 graph replays of the f32 step
+                 (batch 8, TF32 off, deterministic cuDNN) against 3 eager
+                 steps from the same seeds with the optimizers made
+                 capturable alike: parameters, EMA and Adam moments
+                 bit-equal; profiles of the eager bf16 batch-16 step and
+                 of the optimizers' update alone, default and capturable
+                 (what the graph's Adam costs an eager step); then the
+                 bf16 step at batch 16 and 64 as K=4 replays per
+                 dispatch: images/s beside phase 8's eager step, and a
+                 profile of two dispatches at batch 16 whose trace holds
+                 7 / 2 / 1 / 1 launches of the fuse / fuse-backward /
+                 sym-TV / sym-TV-backward kernels per replayed step, while
+                 the wrappers launch nothing;
+12. options    — the bf16 batch-16 step with gradient accumulation (2),
+                 remat (both), and both: metrics finite, peak memory beside
+                 the plain step's, and, without accumulation, each phase's
+                 own peak;
+13. graphed synthesis — ``tpgan_tpu_torch.bench``'s graphed and eager
+                 forms at batch 8 and 128, each graph captured on one batch
+                 and held against the eager form on another: bf16 and f32
+                 bit-equal (f32 with deterministic cuDNN); a profile of one
+                 replay whose trace holds 3 fuse kernels while the wrappers
+                 launch nothing; images/s of both.
 
-Counts are set to 0 just before each path (serve, train, conv A/B) is driven and
-read just after; launches made to compare a kernel with its plain version
-do not count. Ends with a ``{"kernels": [...]}`` line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}`` as the last line.
+Counts are set to 0 just before each path (serve, train, conv A/B, loop) is
+driven and read just after; launches made to compare a kernel with its
+plain version do not count. A CUDA graph's replays run no wrapper and
+count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
+launches are the wrappers' own, and the profiler traces of phases 11 and 13
+show that the kernels run inside the graphs. Ends with a
+``{"kernels": [...]}`` line, the card's name and power limit, and
+``{"ok": true, "device": {...}}`` as the last line.
 Imports nothing of JAX; needs one GPU.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import json
+import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 import traceback
 from unittest import mock
@@ -105,6 +144,10 @@ TRAIN_STEPS = 5
 TRAIN_F32_BATCH = 8
 PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1,
             "conv3x3_bias_lrelu": 0}
+# the port's kernels by their CUDA function names, as a profiler trace
+# names them (longest first: one name holds no other)
+TRACE_KERNELS = re.compile(r"(fuse_parts_bwd_kernel|fuse_parts_kernel|sym_tv_bwd_general_kernel|"
+                           r"sym_tv_bwd_kernel|sym_tv_kernel|conv3x3_\w*_kernel)")
 # K3 on the card: (B, H, W, Cin, Cout, dtype name, variant) beside the
 # three A/B shapes in bf16 — the TMA + wgmma kernel's tails (W 96: the last
 # column tile runs past W; W 8; H 1; B 1; Cin 72: a zero-filled chunk tail;
@@ -144,6 +187,15 @@ BF16_REL_DIFF = 0.05
 # upstream scalars, or zeroes the fuse gradient moves some leaf far
 # beyond it.
 TRAIN_F32_GRAD_ULPS = 4
+# phase 10: the loop, K steps per dispatch, a checkpoint, a sample and a
+# log line every LOOP_EVERY steps, then a resume
+LOOP_K = 4
+LOOP_EVERY = 4
+LOOP_STEPS = 8
+LOOP_RESUME_TO = 12
+MULTI_K = 3  # phase 11
+GRAPHED_DISPATCHES = 5  # phase 11's timing: 20 steps after the capture
+OPTION_STEPS = 2  # phase 12, timed after one step
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -673,13 +725,13 @@ def time_synthesis(dev, synthesize, zdim, tag):
 
 def time_train(dev, tag):
     """Train-step ms and images/s at batch 16 and 64 (steady state after
-    warm-up, back to back, one synchronise at the end), with peak memory."""
-    import gc
-
+    warm-up, back to back, one synchronise at the end), with peak memory;
+    returns {batch: (images/s, peak GiB)}."""
     import torch
 
     from tpgan_tpu_torch.entry import train_entry
 
+    rates = {}
     for batch, steps in ((TRAIN_BATCH, 20), (64, 10)):
         gc.collect()
         torch.cuda.empty_cache()
@@ -698,13 +750,429 @@ def time_train(dev, tag):
         log(f"time: train step bf16 full size batch {batch}: {dt * 1e3:.2f} ms/step = "
             f"{batch / dt:.1f} images/s ({steps} steps after 3 warm-up; D+G update, inputs on "
             f"the device); peak memory {peak:.2f} GiB {tag}")
+        rates[batch] = (batch / dt, peak)
         del step_fn, state, b, generator, metrics, _m
+    return rates
+
+
+def _f32_exact(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = not on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def run_loop(dev, tag, eager_rate):
+    """Phase 10: ``run_gan_training`` at full size, bf16, batch 16, K = 4
+    steps per dispatch (the graphed step), 8 steps with a checkpoint and
+    a sample every 4 steps, then a resume to 12. Returns the wrappers'
+    launches in both runs: each capture's warm-up steps and each sample's
+    forward (the graph's replays run no wrapper)."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train import loop as loop_module
+    from tpgan_tpu_torch.train.checkpoint import latest_step
+    from tpgan_tpu_torch.train.gan_trainer import GRAPH_WARMUP_CALLS, make_multi_step
+    from tpgan_tpu_torch.train.loop import run_gan_training
+    from tpgan_tpu_torch.train.metrics import MetricWriter
+    from tpgan_tpu_torch.train.sampling import make_sample_fn
+
+    cfg = make_config({"compute_dtype": "bfloat16",
+                       "train": {"batch_size": TRAIN_BATCH, "checkpoint_every_steps": LOOP_EVERY}})
+    pool = [synthetic_gan_batch(TRAIN_BATCH, seed=s, num_classes=cfg.G.num_classes)
+            for s in range(4)]
+    probe = synthetic_gan_batch(BATCH, seed=50)
+    dataset = [{k: v[i] for k, v in probe.items()} for i in range(BATCH)]
+    total = dict.fromkeys(PER_STEP, 0)
+    multis = []  # each run's multi-step, for the capture's record of a replay
+
+    def spy(step, k):
+        multis.append(make_multi_step(step, k))
+        return multis[-1]
+
+    with tempfile.TemporaryDirectory() as root, \
+            mock.patch.object(loop_module, "make_multi_step", spy):
+        ckpt, logs = os.path.join(root, "ckpt"), os.path.join(root, "logs")
+        writer = MetricWriter(logs, use_tensorboard=False)
+        sample_fn = make_sample_fn(cfg, None, dataset, os.path.join(root, "samples"))
+        runs = []
+        for steps, resume in ((LOOP_STEPS, False), (LOOP_RESUME_TO, True)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = run_gan_training(
+                cfg, itertools.cycle(pool), steps=steps, checkpoint_dir=ckpt, resume=resume,
+                writer=writer, log_every=LOOP_EVERY, steps_per_dispatch=LOOP_K,
+                sample_fn=sample_fn, sample_every=LOOP_EVERY, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            samples = (steps - (LOOP_STEPS if resume else 0)) // LOOP_EVERY
+            # the eager warm-up steps before the capture and each sample's
+            # one synthesis forward (3 fuses); the replays launch no wrapper
+            want = {k: v * GRAPH_WARMUP_CALLS for k, v in PER_STEP.items()}
+            want["fuse_parts"] += 3 * samples
+            record = multis[-1].launches()
+            if launches != want or state.step != steps or record != PER_STEP:
+                raise AssertionError(f"loop to {steps}: launches {launches}, expected {want}; "
+                                     f"the capture's record of a replay {record}, expected "
+                                     f"{PER_STEP}; step {state.step}")
+            for k in total:
+                total[k] += launches[k]
+            runs.append((steps, wall))
+            del state
+        writer.close()
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows] != list(range(LOOP_EVERY, LOOP_RESUME_TO + 1, LOOP_EVERY)):
+            raise AssertionError(f"loop metrics at steps {[r['step'] for r in rows]}")
+        bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"loop: non-finite metrics {bad}")
+        ckpts = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+        samples = sorted(os.listdir(os.path.join(root, "samples")))
+        if latest_step(ckpt) != LOOP_RESUME_TO or ckpts != [4, 8, 12] or len(samples) != 3:
+            raise AssertionError(f"loop: checkpoints {ckpts}, samples {samples}")
+        size = sum(os.path.getsize(os.path.join(ckpt, "12", n))
+                   for n in os.listdir(os.path.join(ckpt, "12")))
+    rates = [round(r["imgs_per_sec"], 1) for r in rows]
+    log(f"loop: run_gan_training full size bf16 batch {TRAIN_BATCH}, {LOOP_K} steps per dispatch "
+        f"(CUDA graph), to step {LOOP_STEPS} in {runs[0][1]:.1f} s, resumed to {LOOP_RESUME_TO} in "
+        f"{runs[1][1]:.1f} s (wall, incl. set-up, captures, checkpoints of {size / 2**30:.2f} GiB "
+        f"and samples); metrics at steps {[r['step'] for r in rows]} finite; checkpoints {ckpts}; "
+        f"wrapper launches {total} (warm-ups and samples); the capture's record of a replay "
+        f"{multis[-1].launches()}; imgs_per_sec per logged window {rates} (steps "
+        f"{LOOP_EVERY + 1}-{2 * LOOP_EVERY}: graph replays only) against the eager step's "
+        f"{eager_rate:.1f} (phase 8) {tag}")
+    return total
+
+
+def run_multi_step_f32(dev):
+    """Phase 11: K=3 graph replays of the f32 step against 3 eager steps
+    from the same seeded state, batches and generator seed, the eager
+    step's optimizers made capturable as the capture makes the graph's."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.train.gan_trainer import (
+        create_gan_state,
+        make_gan_train_step,
+        make_multi_step,
+    )
+    from tpgan_tpu_torch.train.optim import make_capturable
+
+    _f32_exact(True)
+    cfg = make_config({"compute_dtype": "float32"})
+    batches = [synthetic_gan_batch(TRAIN_F32_BATCH, seed=20 + i) for i in range(MULTI_K)]
+    # a process's first f32 step differs in the last bits from later ones
+    # (phase 7's reason, ROADMAP C2): one step first, thrown away
+    warm = create_gan_state(cfg, seed=0, device=dev)
+    make_gan_train_step(cfg, *warm[1:])(warm[0], batches[0],
+                                        torch.Generator(device=dev).manual_seed(1))
+    del warm
+    runs = []
+    for graphed in (False, True):
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        generator = torch.Generator(device=dev).manual_seed(9)
+        if graphed:
+            multi = make_multi_step(step, MULTI_K)
+            state, metrics = multi(
+                state, {k: np.stack([b[k] for b in batches]) for k in batches[0]}, generator)
+            if multi.launches() != PER_STEP:
+                raise AssertionError(f"multi-step f32: per replay {multi.launches()}")
+        else:
+            make_capturable(g_opt)
+            make_capturable(d_opt)
+            history = [step(state, b, generator)[1] for b in batches]
+            metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+        torch.cuda.synchronize()
+        leaves = {**{f"G.{n}": p for n, p in gen.named_parameters()},
+                  **{f"D.{n}": p for n, p in disc.named_parameters()},
+                  **{f"ema.{n}": t for n, t in state.g_ema_params.items()}}
+        for tag_, opt, model in (("G", g_opt, gen), ("D", d_opt, disc)):
+            for n, p in model.named_parameters():
+                leaves[f"{tag_}.exp_avg.{n}"] = opt.state[p]["exp_avg"]
+                leaves[f"{tag_}.exp_avg_sq.{n}"] = opt.state[p]["exp_avg_sq"]
+        runs.append(({k: v.clone() for k, v in metrics.items()},
+                     {k: v.detach().clone() for k, v in leaves.items()}, state.step))
+        del state, gen, disc, g_opt, d_opt, step
+    _f32_exact(False)
+    (m_e, l_e, s_e), (m_g, l_g, s_g) = runs
+    ndiff = sum(int((l_g[k] != l_e[k]).sum()) for k in l_e)
+    total = sum(v.numel() for v in l_e.values())
+    worst = 0.0
+    for k, want in l_e.items():
+        scale = float(want.abs().max())
+        d = float((l_g[k] - want).abs().max())
+        if ndiff and not d <= TRAIN_F32_GRAD_ULPS * float(np.spacing(np.float32(scale))):
+            raise AssertionError(f"multi-step f32 {k}: graph vs eager max|diff| {d} beyond "
+                                 f"{TRAIN_F32_GRAD_ULPS} ulp of max {scale}")
+        worst = max(worst, d / scale if scale else 0.0)
+    mdiff = sum(int((m_g[k] != m_e[k]).sum()) for k in m_e)
+    if s_e != s_g or s_g != MULTI_K:
+        raise AssertionError(f"multi-step f32: steps {s_e} / {s_g}")
+    log(f"multi-step f32: batch {TRAIN_F32_BATCH}, {MULTI_K} graph replays against {MULTI_K} "
+        f"eager steps (TF32 off, deterministic cuDNN, same seeds, capturable Adam on both "
+        f"sides): {ndiff} of {total} elements "
+        f"of the parameters, EMA and Adam moments differ (worst leaf {worst:.3e} of its max), "
+        f"{mdiff} of {sum(v.numel() for v in m_e.values())} metric values; the capture's "
+        f"record of a replay {PER_STEP}")
+
+
+def capturable_cost(dev, tag, cfg):
+    """Phase 11: what the graph's capturable Adam and fixed ``.grad``
+    buffers cost the eager bf16 step: profiles of the step, and of both
+    optimizers' update alone, default and then capturable, on a state of
+    its own."""
+    import torch
+
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.train.gan_trainer import create_gan_state, make_gan_train_step
+    from tpgan_tpu_torch.train.optim import make_capturable
+
+    state, *models = create_gan_state(cfg, seed=0, device=dev)
+    step = make_gan_train_step(cfg, *models)
+    batch = synthetic_gan_batch(TRAIN_BATCH, seed=0, num_classes=cfg.G.num_classes)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], batch, generator)
+
+    def update():
+        state.d_opt.step()
+        state.g_opt.step()
+
+    out = {}
+    for mode in ("default", "capturable"):
+        if mode == "capturable":
+            make_capturable(state.g_opt)
+            make_capturable(state.d_opt)
+        one_step()  # first use of this mode
+        out[mode] = (profile(one_step, 2, f"eager train step bf16 batch {TRAIN_BATCH}, {mode} "
+                             "Adam", "step", tag, {}),
+                     profile(update, 2, f"D + G Adam update alone, {mode}", "update", tag, {}))
+    if any(p is None for pair in out.values() for p in pair):
+        log("capturable cost: the profiler recorded no device time (not measured)")
+        return
+    (s0, a0), (s1, a1) = out["default"], out["capturable"]
+    step_k, step_ms = s1["kernels"] - s0["kernels"], s1["busy_ms"] - s0["busy_ms"]
+    adam_k, adam_ms = a1["kernels"] - a0["kernels"], a1["busy_ms"] - a0["busy_ms"]
+    log(f"capturable cost: eager bf16 step batch {TRAIN_BATCH}: default {s0['kernels']:.0f} "
+        f"kernels, {s0['busy_ms']:.2f} ms busy per step; capturable Adam + fixed .grad "
+        f"{s1['kernels']:.0f} kernels, {s1['busy_ms']:.2f} ms ({step_k:+.0f}, {step_ms:+.2f} ms); "
+        f"the Adam update alone {a0['kernels']:.0f} -> {a1['kernels']:.0f} kernels, "
+        f"{a0['busy_ms']:.2f} -> {a1['busy_ms']:.2f} ms ({adam_k:+.0f}, {adam_ms:+.2f} ms); the "
+        f"rest, the gradient copies, {step_k - adam_k:+.0f} kernels, {step_ms - adam_ms:+.2f} ms "
+        f"{tag}")
+
+
+def time_graphed_step(dev, tag, eager):
+    """Phase 11, timing: the full-size bf16 step as K = LOOP_K replays per
+    dispatch at batch 16 and 64, after the capture, ``GRAPHED_DISPATCHES``
+    dispatches back to back, after what the capturable optimizers cost
+    the eager step (:func:`capturable_cost`); at batch 16, then, a profile
+    of two dispatches whose trace must hold each kernel's launches per
+    replayed step while the wrappers launch nothing."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.gan_trainer import (
+        create_gan_state,
+        make_gan_train_step,
+        make_multi_step,
+    )
+
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    capturable_cost(dev, tag, cfg)
+    for batch in (TRAIN_BATCH, 64):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        multi = make_multi_step(make_gan_train_step(cfg, gen, disc, g_opt, d_opt), LOOP_K)
+        b = synthetic_gan_batch(batch, seed=0, num_classes=cfg.G.num_classes)
+        super_batch = {k: np.stack([v] * LOOP_K) for k, v in b.items()}
+        generator = torch.Generator(device=dev).manual_seed(0)
+        state, metrics = multi(state, super_batch, generator)  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPHED_DISPATCHES):
+            state, metrics = multi(state, super_batch, generator)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (GRAPHED_DISPATCHES * LOOP_K)
+        for k in metrics:
+            if not torch.isfinite(metrics[k].float()).all():
+                raise AssertionError(f"graphed step batch {batch}: non-finite {k}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"time: graphed train step bf16 full size batch {batch}: {dt * 1e3:.2f} ms/step = "
+            f"{batch / dt:.1f} images/s ({GRAPHED_DISPATCHES} dispatches of {LOOP_K} replays "
+            f"after the capture, batches copied in from the host; eager {eager[batch][0]:.1f} "
+            f"images/s in phase 8); peak memory {peak:.2f} GiB {tag}")
+        if batch == TRAIN_BATCH:
+            box = [state]
+
+            def dispatch():
+                box[0], _ = multi(box[0], super_batch, generator)
+
+            kernels.reset_launch_counts()
+            stats = profile(dispatch, 2, f"graphed train step bf16 batch {batch}, {LOOP_K} "
+                            "replays per dispatch", "dispatch", tag,
+                            {"fuse_parts": ["fuse_parts_kernel"]})
+            wrappers = kernels.launch_counts()
+            if any(wrappers.values()):
+                raise AssertionError(f"graph replays went through the wrappers: {wrappers}")
+            replays = 2 * LOOP_K
+            traced = check_traced(stats, f"graphed step, {replays} replays", {
+                "fuse_parts_kernel": 7 * replays, "fuse_parts_bwd_kernel": 2 * replays,
+                "sym_tv_kernel": replays, "sym_tv_bwd_kernel": replays})
+            log(f"graphed step: the trace of {replays} replayed steps holds {traced} (7 / 2 / 1 / 1 "
+                f"per step); the wrappers launched nothing {tag}")
+            del box
+        del state, gen, disc, g_opt, d_opt, multi, metrics
+
+
+def run_options(dev, tag, plain_peak):
+    """Phase 12: the bf16 batch-16 step with each option; metrics finite,
+    ms/step and peak memory beside the plain step's."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.train.gan_trainer import create_gan_state, make_gan_train_step
+
+    batch = synthetic_gan_batch(TRAIN_BATCH, seed=0)
+    out = []
+    for name, train in (("plain", {}), ("accum 2", {"grad_accum_steps": 2}),
+                        ("remat both", {"remat": True, "remat_scope": "both"}),
+                        ("accum 2 + remat both", {"grad_accum_steps": 2, "remat": True,
+                                                  "remat_scope": "both"})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = make_config({"compute_dtype": "bfloat16", "train": train})
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        generator = torch.Generator(device=dev).manual_seed(0)
+        state, metrics = step(state, batch, generator)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OPTION_STEPS):
+            state, metrics = step(state, batch, generator)
+            train_metrics_ok(metrics)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / OPTION_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line = f"{name} {dt * 1e3:.1f} ms/step, peak {peak:.2f} GiB"
+        if not train.get("grad_accum_steps"):
+            # where the peak is: one more step, phase by phase (the step's
+            # exposed parts), the peak of each
+            nchw, (z, gp_eps, mask_d, mask_g) = step.prepare(batch, generator)
+            phases = {}
+            for phase, run in (("D", lambda: step.d_phase(nchw, z, gp_eps, mask_d)),
+                               ("G", lambda: step.g_phase(nchw, z, mask_g))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                phases[phase] = torch.cuda.max_memory_allocated() / 2**30
+            line += f" (D phase peak {phases['D']:.2f}, G phase {phases['G']:.2f} GiB)"
+        out.append(line)
+        del state, gen, disc, g_opt, d_opt, step, metrics
+    log(f"options: bf16 full size batch {TRAIN_BATCH}, {OPTION_STEPS} steps after one, metrics "
+        f"finite: {'; '.join(out)} (phase 8's plain step: peak {plain_peak:.2f} GiB) {tag}")
+
+
+def run_graphed_synthesis(dev, tag):
+    """Phase 13: the bench's graphed and eager synthesis at batch 8 and 128:
+    each graph captured on one batch and held against the eager form on
+    another, bit for bit; a profile of one replay whose trace holds the 3
+    fuse kernels of a forward while the wrappers launch nothing; images/s
+    of both forms."""
+    import torch
+
+    from tpgan_tpu_torch import bench
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.gan_trainer import (
+        SYNTHESIS_KEYS,
+        build_generator,
+        make_graphed_synthesize_fn,
+        make_synthesize_fn,
+    )
+
+    def request(batch, seed):
+        """A batch of its own from ``seed``, on the card."""
+        inputs = {k: torch.as_tensor(v, device=dev)
+                  for k, v in synthetic_gan_batch(batch, seed=seed).items() if k in SYNTHESIS_KEYS}
+        z = torch.randn(batch, 64, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        return inputs, z
+
+    lines = []
+    for dname in ("bfloat16", "float32"):
+        _f32_exact(dname == "float32")
+        if dname == "bfloat16":
+            fns = bench.build_synthesizers("bf16", dev)
+        else:
+            cfg = make_config({"compute_dtype": "float32"})
+            gen = build_generator(cfg, dev, seed=0)
+            fns = {"graphed": make_graphed_synthesize_fn(cfg, gen),
+                   "eager": make_synthesize_fn(cfg, gen)}
+        for batch in (BATCH, 128):
+            fns["graphed"](*request(batch, 1))  # the capture, on its own batch
+            inputs, z = request(batch, 2)
+            kernels.reset_launch_counts()
+            got = fns["graphed"](inputs, z)
+            torch.cuda.synchronize()
+            wrappers = kernels.launch_counts()
+            want = fns["eager"](inputs, z)
+            err = float((got.float() - want.float()).abs().max())
+            record = fns["graphed"].launches()[batch]["fuse_parts"]
+            if not torch.equal(got, want) or any(wrappers.values()) or record != 3:
+                raise AssertionError(f"graphed synthesis {dname} B={batch}: max|graphed - eager| "
+                                     f"{err} on a batch other than the capture's; wrapper "
+                                     f"launches over a replay {wrappers}; the capture's record "
+                                     f"{record} fuses")
+            line = f"{dname} B={batch}: graphed == eager on a batch other than the capture's"
+            if dname == "bfloat16":
+                if batch == BATCH:
+                    stats = profile(lambda: fns["graphed"](inputs, z), 1,
+                                    f"graphed bf16 synthesis batch {batch}", "forward", tag,
+                                    {"fuse_parts": ["fuse_parts_kernel"]})
+                    check_traced(stats, "one graphed forward", {"fuse_parts_kernel": 3})
+                    line += ", the trace of one replay holds 3 fuse kernels"
+                rates = {form: bench.measure(fns[form], batch, dev) for form in ("graphed", "eager")}
+                line += (f", {rates['graphed']:.1f} images/s graphed against {rates['eager']:.1f} "
+                         f"eager ({bench.SCAN_LEN} dependent forwards per timed dispatch, best "
+                         f"of 3)")
+            lines.append(line)
+        del fns
+        torch.cuda.empty_cache()
+    _f32_exact(False)
+    log(f"graphed synthesis: {'; '.join(lines)} {tag}")
 
 
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
-    the device kernels that ran just before each kernel of that name."""
+    the device kernels that ran just before each kernel of that name.
+    Returns ``{"busy_ms", "kernels"}`` per call and ``"traced"``: the
+    port's kernels in the trace, {CUDA function name: launches in all
+    ``iters`` calls}; None when the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -730,7 +1198,7 @@ def profile(fn, iters, what, unit, tag, names, before=None):
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     if busy_us <= 0:
         log(f"profile: {what}: the profiler recorded no device time (not measured)")
-        return
+        return None
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -753,6 +1221,22 @@ def profile(fn, iters, what, unit, tag, names, before=None):
     top = sorted(left_out.items(), key=lambda kv: -kv[1])[:3]
     log(f"profile:   left out of busy time: {sum(left_out.values()) // iters} annotation "
         f"ranges/{unit} {[(n[:40], c // iters) for n, c in top]}")
+    traced = {}
+    for e in kern:
+        m = TRACE_KERNELS.search(e.name)
+        if m:
+            traced[m.group(1)] = traced.get(m.group(1), 0) + 1
+    return {"busy_ms": busy_us / iters / 1e3, "kernels": len(kern) / iters, "traced": traced}
+
+
+def check_traced(stats, what, want):
+    """Raise unless the profile ``stats`` traced exactly ``want``: {CUDA
+    function name: launches}, the kernels that ran on the device."""
+    got = None if stats is None else stats["traced"]
+    if got != want:
+        raise AssertionError(f"{what}: the profiler trace holds the port's kernels {got}, "
+                             f"expected {want}")
+    return want
 
 
 def main() -> int:
@@ -895,7 +1379,7 @@ def main() -> int:
             {"fuse_parts": ["fuse_parts_kernel"]})
     del gen, synthesize, outputs
     torch.cuda.empty_cache()
-    time_train(dev, tag)
+    train_rates = time_train(dev, tag)
 
     # ---- 9. conv A/B: K3 against cuDNN's conv + epilogue ----
     torch.cuda.empty_cache()
@@ -929,6 +1413,14 @@ def main() -> int:
                  "leaky_relu": ["leaky_relu"]})
     del x, k, b, weight
 
+    # ---- 10-13. the loop, multi-step, options, graphed synthesis ----
+    torch.cuda.empty_cache()
+    loop_launches = run_loop(dev, tag, train_rates[TRAIN_BATCH][0])
+    run_multi_step_f32(dev)
+    time_graphed_step(dev, tag, train_rates)
+    run_options(dev, tag, train_rates[TRAIN_BATCH][1])
+    run_graphed_synthesis(dev, tag)
+
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
         return {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -947,8 +1439,11 @@ def main() -> int:
         "route": "cuda",
         "source": f"tpgan_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        # launches on the main paths: serve (4 requests) + train (5 steps)
-        "launches": serve_launches[name] + train_launches[name],
+        # wrapper launches on the main paths: serve (4 requests) + train
+        # (5 steps) + the loop's eager calls (2 captures' warm-up steps and
+        # 3 samples' forwards); the loop's graph replays run no wrapper (the
+        # traces of phases 11 and 13 show their kernels)
+        "launches": serve_launches[name] + train_launches[name] + loop_launches[name],
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",

@@ -43,12 +43,13 @@ SGD_LR = 1e-2
 PATCH_KEYS = ("img", "left_eye", "right_eye", "nose", "mouth")
 
 
-def overrides(use_batchnorm: bool = False) -> dict:
+def overrides(use_batchnorm: bool = False, train=None) -> dict:
     return {
         "G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16,
               "use_batchnorm": use_batchnorm},
         "D": {"fm_multiplier": 0.25, "use_batchnorm": use_batchnorm},
         "compute_dtype": "float32",
+        "train": dict(train or {}),
     }
 
 
@@ -58,28 +59,37 @@ def tree_np(tree):
 
 class Pair:
     """One configuration's JAX models, initial numpy weights, batch and
-    the JAX step's noise, with helpers to run one step on either side."""
+    the JAX step's noise, with helpers to run one step on either side.
+    ``train``: train-config overrides of both sides (``grad_accum_steps``
+    gives the noise a leading microbatch axis, as the JAX step draws it)."""
 
-    def __init__(self, use_batchnorm: bool = False, seed: int = 0):
-        ov = overrides(use_batchnorm)
+    def __init__(self, use_batchnorm: bool = False, seed: int = 0, batch: int = BATCH,
+                 train=None):
+        ov = overrides(use_batchnorm, train)
         self.jcfg, self.cfg = jax_make_config(ov), make_config(ov)
         self.jgen, self.jdisc = jax_build_models(self.jcfg)
-        self.batch = synthetic_gan_batch(BATCH, seed=seed + 10)
+        self.batch = synthetic_gan_batch(batch, seed=seed + 10)
         imgs = [self.batch[k] for k in PATCH_KEYS]
-        z0 = np.zeros((BATCH, self.cfg.G.zdim), np.float32)
+        z0 = np.zeros((batch, self.cfg.G.zdim), np.float32)
         self.g_params, self.g_stats = init_numpy(self.jgen, *imgs, z0, seed=seed + 1)
         self.d_params, self.d_stats = init_numpy(self.jdisc, imgs[0], seed=seed + 2)
         self.rng = jax.random.PRNGKey(seed + 3)
         self.noise = self._jax_noise()
 
     def _jax_noise(self) -> dict:
+        """The step's draws as ``gan_trainer.py:337-338`` (one batch) or
+        ``:398-405`` (accumulation: z for all microbatches at once, one GP
+        rng and two dropout rngs per microbatch) makes them. The masks are
+        tracers inside the JAX scan, so each is regenerated by applying the
+        generator outside it, on that microbatch with its own rng."""
+        accum = max(int(self.cfg.train.grad_accum_steps or 1), 1)
+        b = self.batch["img"].shape[0]
+        m = b // accum
         z_rng, gp_rng, drop_rng, drop_rng2 = jax.random.split(self.rng, 4)
-        z = jax.random.normal(z_rng, (BATCH, self.cfg.G.zdim), jnp.float32)
-        eps = jax.random.uniform(gp_rng, (BATCH, 1, 1, 1), dtype=jnp.float32)
         gen = self.jgen
 
         @jax.jit
-        def keep_mask(drop_rng):
+        def keep_mask(drop_rng, imgs, z):
             seen = {}
 
             def grab(next_fun, args, kwargs, context):
@@ -91,16 +101,29 @@ class Pair:
             with fnn.intercept_methods(grab):
                 gen.apply(
                     {"params": self.g_params, "batch_stats": self.g_stats or {}},
-                    *(self.batch[k] for k in PATCH_KEYS), z,
+                    *imgs, z,
                     use_dropout=True, train=True, rngs={"dropout": drop_rng},
                     mutable=["batch_stats"],
                 )
             return seen["y"] != 0
 
+        imgs = [self.batch[k] for k in PATCH_KEYS]
+        if accum == 1:
+            z = jax.random.normal(z_rng, (b, self.cfg.G.zdim), jnp.float32)
+            eps = jax.random.uniform(gp_rng, (b, 1, 1, 1), dtype=jnp.float32)
+            masks = [keep_mask(r, imgs, z) for r in (drop_rng, drop_rng2)]
+        else:
+            z = jax.random.normal(z_rng, (accum, m, self.cfg.G.zdim), jnp.float32)
+            eps = jnp.stack([jax.random.uniform(r, (m, 1, 1, 1), dtype=jnp.float32)
+                             for r in jax.random.split(gp_rng, accum)])
+            masks = [
+                jnp.stack([keep_mask(r, [x[i * m:(i + 1) * m] for x in imgs], z[i])
+                           for i, r in enumerate(jax.random.split(rng, accum))])
+                for rng in (drop_rng, drop_rng2)
+            ]
         return {  # np.array: writable copies for torch
             "z": np.array(z), "gp_eps": np.array(eps),
-            "drop_mask_d": np.array(keep_mask(drop_rng)),
-            "drop_mask_g": np.array(keep_mask(drop_rng2)),
+            "drop_mask_d": np.array(masks[0]), "drop_mask_g": np.array(masks[1]),
         }
 
     def jax_step(self, make_tx):
@@ -195,6 +218,29 @@ def assert_grads_match(want: dict, got: dict, label: str, atol_share: float = GR
         scale = float(np.abs(gj).max())
         np.testing.assert_allclose(gt, gj, rtol=2e-3, atol=atol_share * scale + 1e-12,
                                    err_msg=f"{label} grad {name}")
+
+
+# The G gradients' bar on data other than the single step's. There the f32
+# noise of a leaf whose gradients nearly cancel reaches past
+# GRAD_ATOL_SHARE: ROADMAP C3 found the worst G leaf 1.09e-2 of its max
+# from a float64 run on both sides; at batch 4 (seeds 0-2) the plain step
+# differs from JAX's beyond 2e-3 on a few elements of one leaf (seed 0:
+# global_pathway.deconv_8, 8.8e-3 of its max of 3.1e-6, where the port's f32
+# gradient of one microbatch is 1.06e-2 of it from the port's float64 one,
+# in each loss term, and JAX's 2.6e-3). So leaves are held at 1.5e-2 of
+# their max element by element, and all G leaves together to 2e-3 in
+# relative L2 (each f32 side is about 3e-4 from float64 there, C3).
+G_ANY_DATA_ATOL_SHARE = 1.5e-2
+G_REL_L2 = 2e-3
+
+
+def assert_g_grads_match_any_data(want: dict, got: dict, label: str):
+    """G gradient leaves at rtol 2e-3, atol G_ANY_DATA_ATOL_SHARE x the
+    leaf's max, and all of them together within G_REL_L2 in relative L2."""
+    assert_grads_match(want, got, label, atol_share=G_ANY_DATA_ATOL_SHARE)
+    gap = np.sqrt(sum(np.sum((np.float64(g) - want[n]) ** 2) for n, g in got.items()))
+    rel = gap / np.sqrt(sum(np.sum(np.float64(want[n]) ** 2) for n in got))
+    assert rel <= G_REL_L2, (label, rel)
 
 
 def assert_metrics_match(got: dict, want: dict):

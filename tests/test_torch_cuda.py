@@ -553,3 +553,115 @@ def test_conv3x3_rejects_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="forward only"):
         kernels.conv3x3_bias_lrelu(x.clone().requires_grad_(), k, b)
     assert kernels.launch_counts()["conv3x3_bias_lrelu"] == before
+
+
+SMALL = {"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
+         "D": {"fm_multiplier": 0.25}}
+
+
+def _f32_exact():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _written(state):
+    out = [p.detach() for m in (state.gen, state.disc) for p in m.parameters()]
+    out += list(state.g_ema_params.values())
+    for opt in (state.g_opt, state.d_opt):
+        out += [v for s in opt.state.values() for v in s.values()]
+    return out
+
+
+def test_multi_step_graph_replays_equal_eager_steps(cuda):
+    """K=3 replays of the captured f32 step against 3 eager steps from the
+    same seeded state, batches and generator seed, the eager step's
+    optimizers made capturable as the capture makes the graph's, after a
+    warm-up step (a process's first f32 step differs in the last bits,
+    ROADMAP C2)."""
+    from tpgan_tpu_torch.train.gan_trainer import make_multi_step
+    from tpgan_tpu_torch.train.optim import make_capturable
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype="float32"))
+    batches = [synthetic_gan_batch(2, seed=s) for s in range(3)]
+    warm, *models = create_gan_state(cfg, 0, cuda)
+    make_gan_train_step(cfg, *models)(warm, batches[0], torch.Generator(device=cuda).manual_seed(1))
+    runs = []
+    for graphed in (False, True):
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, cuda)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        generator = torch.Generator(device=cuda).manual_seed(5)
+        kernels.reset_launch_counts()
+        assert not g_opt.param_groups[0]["capturable"]  # the eager default
+        if graphed:
+            multi = make_multi_step(step, 3)
+            state, metrics = multi(state, {k: np.stack([b[k] for b in batches]) for k in batches[0]},
+                                   generator)
+            assert multi.launches() == {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1,
+                                        "sym_tv_bwd": 1, "conv3x3_bias_lrelu": 0}
+        else:
+            make_capturable(g_opt)
+            make_capturable(d_opt)
+            history = [step(state, b, generator)[1] for b in batches]
+            metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        # eager: 3 steps; graphed: the 2 warm-up steps only (a replay runs
+        # no wrapper)
+        steps = 2 if graphed else 3
+        assert counts["fuse_parts"] == 7 * steps and counts["sym_tv_bwd"] == steps
+        assert state.step == 3
+        assert all(opt.param_groups[0]["capturable"] for opt in (g_opt, d_opt))
+        runs.append((metrics, [t.clone() for t in _written(state)]))
+    torch.backends.cudnn.deterministic = False
+    (m_eager, t_eager), (m_graph, t_graph) = runs
+    for k in m_eager:
+        assert m_graph[k].shape == (3,) and torch.equal(m_graph[k], m_eager[k]), k
+    assert len(t_eager) == len(t_graph)
+    assert all(torch.equal(a, b) for a, b in zip(t_eager, t_graph))
+
+
+def test_multi_step_graph_refuses_a_replaced_state_or_generator(cuda):
+    from tpgan_tpu_torch.train.gan_trainer import make_multi_step
+
+    cfg = make_config(dict(SMALL, compute_dtype="bfloat16"))
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, cuda)
+    multi = make_multi_step(make_gan_train_step(cfg, gen, disc, g_opt, d_opt), 2)
+    batches = [synthetic_gan_batch(2, seed=s) for s in range(2)]
+    super_batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    state, metrics = multi(state, super_batch, generator)
+    assert state.step == 2 and all(torch.isfinite(v.float()).all() for v in metrics.values())
+    with pytest.raises(ValueError, match="captured with"):
+        multi(state, super_batch, torch.Generator(device=cuda).manual_seed(0))
+    moments = g_opt.state[next(gen.parameters())]
+    moments["exp_avg"] = moments["exp_avg"].clone()  # a new tensor in the state
+    with pytest.raises(RuntimeError, match="replaced since the capture"):
+        multi(state, super_batch, generator)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_synthesis_equals_eager(cuda, dtype):
+    from tpgan_tpu_torch.train.gan_trainer import make_graphed_synthesize_fn
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype=dtype))
+    gen = build_generator(cfg, cuda, seed=0)
+    graphed, eager = make_graphed_synthesize_fn(cfg, gen), make_synthesize_fn(cfg, gen)
+    # the first shape's graph again, on a batch other than the one it was
+    # captured on
+    for b, seed, new in ((2, 0, True), (3, 1, True), (2, 2, False)):
+        batch = {k: v for k, v in synthetic_gan_batch(b, seed=seed).items()
+                 if k in ("img", "left_eye", "right_eye", "nose", "mouth")}
+        z = np.random.RandomState(seed).standard_normal((b, cfg.G.zdim)).astype(np.float32)
+        kernels.reset_launch_counts()
+        got = graphed(batch, z)
+        torch.cuda.synchronize()
+        # 2 eager warm-up calls' 3 each on a new shape; a replay runs no wrapper
+        assert kernels.launch_counts()["fuse_parts"] == (6 if new else 0)
+        # the same kernels in the same order: bit-equal in bf16 too
+        assert torch.equal(got, eager(batch, z))
+    torch.backends.cudnn.deterministic = False
+    assert graphed.launches()[2]["fuse_parts"] == 3 and sorted(graphed.launches()) == [2, 3]

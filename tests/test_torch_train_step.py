@@ -168,14 +168,30 @@ SMALL = {"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
          "D": {"fm_multiplier": 0.25}, "compute_dtype": "float32"}
 
 
-@pytest.mark.parametrize("option", [{"grad_accum_steps": 2}, {"remat": True}])
-def test_options_not_in_the_slice_raise(option):
-    cfg = make_config(dict(SMALL, train=option))
-    _state, gen, disc, g_opt, d_opt = create_gan_state(make_config(SMALL), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        make_multi_step(None, 2)
+def _bad_remat_scope():
+    cfg = make_config(dict(SMALL, train={"remat": True, "remat_scope": "decoder"}))
+    _state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, "cpu")
+    make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+
+
+def _accum_not_dividing_the_batch():
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+
+    cfg = make_config(dict(SMALL, train={"grad_accum_steps": 2}))
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, "cpu")
+    step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+    step(state, synthetic_gan_batch(3, seed=1), torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("refused,match", [
+    (_bad_remat_scope, "remat_scope"),
+    (_accum_not_dividing_the_batch, "must divide the batch size 3"),
+    (lambda: make_multi_step(None, 0), "num_steps >= 1"),
+    (lambda: make_multi_step(None, -2), "num_steps >= 1"),
+], ids=["bad_remat_scope", "accum_not_dividing_batch", "zero_steps", "negative_steps"])
+def test_the_step_options_refuse_bad_settings(refused, match):
+    with pytest.raises(ValueError, match=match):
+        refused()
 
 
 def test_eval_g_params_selects_ema_or_live():

@@ -12,8 +12,9 @@ transposed-conv weights (reference-layout state_dicts load directly);
 the synthesis entry point keeps the JAX package's NHWC batch contract.
 
 Device rule: entry points (``train.gan_trainer.build_generator``,
-``entry.entry``) run on ``cuda`` unless the caller passes
-``device="cpu"``; with no GPU and no explicit device they raise.
+``entry.entry``, ``train.loop.run_gan_training``) run on ``cuda`` unless
+the caller passes ``device="cpu"``; with no GPU and no explicit device
+they raise.
 
 Importing this package imports only :mod:`tpgan_tpu_torch.config`; no
 kernel is built until one is first launched on a CUDA tensor.

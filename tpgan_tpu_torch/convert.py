@@ -1,19 +1,25 @@
-"""Carry weights from the JAX package's Generator and Discriminator to
-the port's.
+"""Carry weights, and whole train states, from the JAX package to the
+port.
 
 The inverse of ``tpgan_tpu/train/checkpoint.py``'s torch-to-Flax import
 (``conv_weight``, ``deconv_weight``, ``_bn`` and the fc1 flatten
 permutation of ``import_generator_pth``). It needs numpy only: the input
 is the JAX parameter tree already on the host, e.g.
-``jax.device_get(state.g_params)``.
+``jax.device_get(state.g_params)``. :func:`load_jax_gan_state` carries a
+whole JAX ``GANTrainState`` (step, weights, BatchNorm statistics, EMA and
+both optax Adam states) into a port state: the port's way to resume a
+JAX run, with no Orbax.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from tpgan_tpu_torch.train.gan_trainer import GANTrainState
 
 # the Generator's fc1 input is the 8x8 conv4 map at every fm_multiplier
 _FC1_SPATIAL = 8
@@ -113,3 +119,66 @@ def jax_critic_params_to_state_dict(
     ``res3``, ``res4``, ``head``): it has no ``fc1`` and no ``deconv``, so
     only the conv and BatchNorm rules apply. Load with ``strict=True``."""
     return jax_generator_params_to_state_dict(params_np, batch_stats_np)
+
+
+def _unflatten(arrays: Mapping[str, Any]) -> Dict[str, Any]:
+    """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
+    tree: Dict[str, Any] = {}
+    for key, value in arrays.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def _load_adam(opt: torch.optim.Optimizer, model: torch.nn.Module, adam: Mapping[str, Any],
+               critic: bool) -> None:
+    """optax ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) -> torch
+    Adam's ``exp_avg``, ``exp_avg_sq`` and ``step`` for ``model``'s
+    parameters, through the weights' layout maps (elementwise moments
+    move as their weights do)."""
+    convert = jax_critic_params_to_state_dict if critic else jax_generator_params_to_state_dict
+    mu, nu = convert(adam["mu"]), convert(adam["nu"])
+    count = float(np.asarray(adam["count"]))
+    names = [n for n, _ in model.named_parameters()]
+    saved = opt.state_dict()
+    saved["state"] = {
+        i: {"step": torch.tensor(count), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        for i, n in enumerate(names)
+    }
+    opt.load_state_dict(saved)
+
+
+def load_jax_gan_state(arrays: Mapping[str, Any], state: "GANTrainState") -> "GANTrainState":
+    """Load a JAX ``GANTrainState`` exported to numpy into ``state`` (a
+    port state from ``create_gan_state`` with the same config), in place,
+    and return it.
+
+    ``arrays`` (an ``np.load`` of an npz, or a dict) holds the state's
+    leaves under ``/``-joined paths: ``step``; ``g_params/...``,
+    ``d_params/...``, ``g_batch_stats/...``, ``d_batch_stats/...`` and
+    ``g_ema_params/...`` (the Flax trees); ``g_opt_state/mu/...``,
+    ``g_opt_state/nu/...``, ``g_opt_state/count`` and the same under
+    ``d_opt_state`` (the ``ScaleByAdamState`` of ``optax.adam``). Adam's
+    moments become ``exp_avg`` / ``exp_avg_sq`` under the weights' layout
+    maps and ``count`` becomes ``step``. As ``restore_gan_checkpoint``
+    does, a state that tracks EMA where the JAX one does not starts its
+    EMA from the loaded weights, and JAX EMA weights the state does not
+    track are dropped."""
+    tree = _unflatten(arrays)
+    gen_sd = jax_generator_params_to_state_dict(tree["g_params"], tree.get("g_batch_stats"))
+    disc_sd = jax_critic_params_to_state_dict(tree["d_params"], tree.get("d_batch_stats"))
+    state.gen.load_state_dict(gen_sd, strict=True)
+    state.disc.load_state_dict(disc_sd, strict=True)
+    _load_adam(state.g_opt, state.gen, tree["g_opt_state"], critic=False)
+    _load_adam(state.d_opt, state.disc, tree["d_opt_state"], critic=True)
+    if state.g_ema_params:
+        ema = (jax_generator_params_to_state_dict(tree["g_ema_params"])
+               if tree.get("g_ema_params") else dict(state.gen.named_parameters()))
+        with torch.no_grad():
+            for name, t in state.g_ema_params.items():
+                t.copy_(ema[name])
+    state.step = int(np.asarray(tree["step"]))
+    return state

@@ -206,7 +206,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training and not self.advance_stats:
-            y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            # the advancing pass's op on copies of the statistics: it saves
+            # the same tensors for backward, which torch.utils.checkpoint
+            # asks of a recompute (train/gan_trainer.py's remat)
+            y = F.batch_norm(x32, self.running_mean.clone(), self.running_var.clone(),
+                             self.weight, self.bias, True, self.momentum, self.eps)
         else:
             y = super().forward(x32)
         return y.to(x.dtype)
@@ -216,15 +220,18 @@ class BatchNorm2d(nn.BatchNorm2d):
 def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
     """Within the block, train-mode forwards of ``module`` normalise with
     their own batch statistics but advance no running statistics (the
-    JAX step discards those passes' ``batch_stats`` mutations)."""
+    JAX step discards those passes' ``batch_stats`` mutations). Blocks
+    nest: leaving one restores what was set before it (a rematerialised
+    pass recomputes inside it, ``train/gan_trainer.py``)."""
     bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    before = [bn.advance_stats for bn in bns]
     for bn in bns:
         bn.advance_stats = False
     try:
         yield
     finally:
-        for bn in bns:
-            bn.advance_stats = True
+        for bn, advance in zip(bns, before):
+            bn.advance_stats = advance
 
 
 def _norm_act(bn: Optional[BatchNorm2d], h: torch.Tensor, act: Activation) -> torch.Tensor:

@@ -73,9 +73,10 @@ syncs with the host or copies to it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -100,6 +101,7 @@ _SYM_TV_BWD_VARIANTS = dict.fromkeys(("banded", "general"), 0)
 # Copies a wrapper made before a launch: the fuse backward's of a g whose
 # rows are not dense.
 _COPIES = dict.fromkeys(("fuse_parts_bwd_g",), 0)
+_COUNTERS = (_LAUNCHES, _CONV3X3_VARIANTS, _SYM_TV_BWD_VARIANTS, _COPIES)
 
 FUSE_SOURCE = "fuse_parts.cu"
 SYM_TV_SOURCE = "sym_tv.cu"
@@ -108,7 +110,15 @@ _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def launch_counts() -> Dict[str, int]:
-    """{kernel name: launches so far}."""
+    """{kernel name: launches so far}: the wrapper calls that launched a
+    kernel.
+
+    Inside a CUDA graph a wrapper runs once, while the graph is captured,
+    and launches nothing then; its kernel launches at every replay, where
+    no wrapper runs. So a capture is taken out of these counts and kept as
+    the graph's record of one replay (:func:`captured_launches`), and
+    replays count nothing here: a profiler trace of the replays shows
+    their kernels."""
     return dict(_LAUNCHES)
 
 
@@ -129,9 +139,34 @@ def copy_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set the launch, variant and copy counts to 0."""
-    for counts in (_LAUNCHES, _CONV3X3_VARIANTS, _SYM_TV_BWD_VARIANTS, _COPIES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+
+
+class CapturedLaunches:
+    """What the wrappers recorded while a CUDA graph was captured:
+    ``per_replay`` holds the kernel launches (as :func:`launch_counts`
+    names them) that each replay of the graph makes."""
+
+    def __init__(self) -> None:
+        self.per_replay: Dict[str, int] = dict.fromkeys(_LAUNCHES, 0)
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[CapturedLaunches]:
+    """Around a CUDA graph's capture: the launches the wrappers record
+    inside go into the yielded :class:`CapturedLaunches`, and the launch,
+    variant and copy counts are put back as they were (a capture runs no
+    kernel)."""
+    before = [dict(c) for c in _COUNTERS]
+    record = CapturedLaunches()
+    try:
+        yield record
+    finally:
+        record.per_replay = {k: n - before[0][k] for k, n in _LAUNCHES.items()}
+        for counts, b in zip(_COUNTERS, before):
+            counts.update(b)
 
 
 def _check_launchable(name: str, tensors: Sequence[torch.Tensor], layout: str = "NCHW") -> str:

@@ -18,25 +18,33 @@ phase at a time:
 
 Gradients are taken with ``torch.autograd.grad`` with respect to one
 model's parameters at a time, so the critic never accumulates gradients
-from the G phase. All randomness of a step comes from one explicit
-``torch.Generator``, in a fixed order: ``z ~ N(0, 1)`` (B, zdim), the GP
-``eps ~ U[0, 1)`` (B, 1, 1, 1), then the D-phase and the G-phase dropout
-keep-masks (B, 256). The step mutates the modules, the optimizers and
-the state in place and returns the state.
+from the G phase; they are set as ``.grad`` (copied into fixed buffers
+once the optimizers are capturable, for a CUDA graph). All
+randomness of a step comes from one explicit ``torch.Generator``, in a
+fixed order: ``z ~ N(0, 1)``, the GP ``eps ~ U[0, 1)``, then the D-phase
+and the G-phase dropout keep-masks (256 features per image). The step
+mutates the modules, the optimizers and the state in place and returns
+the state.
 
-Left out of this slice, raising ``NotImplementedError``: gradient
-accumulation (``train.grad_accum_steps > 1``), rematerialisation
-(``train.remat``) and ``make_multi_step`` (ROADMAP A4).
+The step's options, as in the JAX step (``gan_trainer.py:232-260,
+372-484``): ``train.grad_accum_steps`` splits the batch into sequential
+microbatches whose gradients are summed and averaged before each
+update; ``train.remat`` recomputes the generator's and/or the critic's
+activations in the backward pass (``torch.utils.checkpoint``).
+:func:`make_multi_step` runs K steps per host call, as a CUDA graph on
+the card, and :func:`make_graphed_synthesize_fn` the synthesis forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpgan_tpu_torch.config import Config
 from tpgan_tpu_torch.losses.composite import generator_loss_components, total_generator_loss
@@ -50,7 +58,8 @@ from tpgan_tpu_torch.ops.blocks import (
     set_compute_dtype,
 )
 from tpgan_tpu_torch.ops.kernels import fuse_parts
-from tpgan_tpu_torch.train.optim import adam_wgan
+from tpgan_tpu_torch.train.optim import adam_wgan, make_capturable
+from tpgan_tpu_torch.utils import graphs
 from tpgan_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -60,6 +69,10 @@ IdentityEmbedFn = Callable[[torch.Tensor], torch.Tensor]
 PATCH_KEYS = ("img", "left_eye", "right_eye", "nose", "mouth")
 FRONTAL_PATCH_KEYS = ("left_eye_frontal", "right_eye_frontal", "nose_frontal", "mouth_frontal")
 NOISE_KEYS = ("z", "gp_eps", "drop_mask_d", "drop_mask_g")
+REMAT_SCOPES = ("generator", "critic", "both")
+# Eager calls on a side stream before a CUDA-graph capture: the first
+# builds what is made on first use, the second runs with all of it in place.
+GRAPH_WARMUP_CALLS = 2
 
 
 def build_generator(
@@ -218,10 +231,39 @@ def _to_device_nchw(batch: Batch, device: torch.device) -> Dict[str, torch.Tenso
     return out
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet (ROADMAP A4: the step's remaining options)"
-    )
+class _FrozenForRecompute:
+    """``frozen_batch_stats(module)`` as a context that can be entered
+    again, once per recompute (a double backward recomputes twice)."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.module = module
+        self._open: List[Any] = []
+
+    def __enter__(self) -> None:
+        frozen = frozen_batch_stats(self.module)
+        frozen.__enter__()
+        self._open.append(frozen)
+
+    def __exit__(self, *exc) -> None:
+        self._open.pop().__exit__(*exc)
+
+
+def _remat(module: torch.nn.Module, fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn`` (a forward of ``module``) under ``torch.utils.checkpoint``:
+    its activations are recomputed in the backward pass instead of kept.
+    The recompute advances no BatchNorm running statistics (the port's
+    BatchNorm advances them inside ``forward``; JAX's functional remat
+    never advances them twice) and draws no random numbers (the step's
+    draws are explicit tensors), so it keeps no RNG state."""
+
+    def contexts():
+        return contextlib.nullcontext(), _FrozenForRecompute(module)
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=contexts, **kwargs)
+
+    return run
 
 
 def make_gan_train_step(
@@ -239,76 +281,137 @@ def make_gan_train_step(
     uint8). ``generator``: a ``torch.Generator`` on the models' device, the
     step's only source of randomness. ``noise``: optional overrides of the
     draws, any of ``z``, ``gp_eps``, ``drop_mask_d``, ``drop_mask_g``
-    (tests inject the JAX step's values). ``metrics``: JAX's keys, as 0-d
-    device tensors (no host sync in the step)."""
-    if int(cfg.train.grad_accum_steps or 1) > 1:
-        raise _not_ported("train.grad_accum_steps > 1 (gradient accumulation)")
-    if cfg.train.remat:
-        raise _not_ported("train.remat (rematerialisation)")
+    (tests inject the JAX step's values); with gradient accumulation each
+    takes a leading ``(accum, ...)`` axis, one entry per microbatch.
+    ``metrics``: JAX's keys, as 0-d device tensors (no host sync in the
+    step); with accumulation, the mean over the microbatches.
+
+    ``train.grad_accum_steps`` = n > 1 (JAX ``accum_train_step``): the
+    batch splits into n sequential microbatches, each with its own z, GP
+    eps and dropout masks; the critic's gradients are summed in f32 over
+    them and divided by n, then one D update; the generator's, against the
+    updated critic, likewise, then one G update. G's BatchNorm statistics
+    advance through both loops in turn, D's through the D loop. Raises
+    ``ValueError`` when n does not divide the batch.
+
+    ``train.remat`` (``remat_scope`` generator, critic or both): the
+    train-mode generator forward of the G phase and/or every critic apply
+    (the GP's double backward included) recompute their activations in the
+    backward pass. Gradients and statistics are those of the plain step.
+    At this granularity (the whole forward in one checkpoint, as JAX's
+    ``jax.checkpoint(g_forward)``) it saves no memory at batch 16: on the
+    H100 80GB HBM3 at 700 W the full-size bf16 step peaks at 5.65-5.66
+    GiB with ``both`` against 5.63-5.64 GiB without (``chip_smoke.py``
+    phase 12, ``PERF.md`` §6). A remat per block is ROADMAP A16.
+    """
     loss_cfg = cfg.loss
     zdim = cfg.G.zdim
     ema_decay = float(cfg.train.ema_decay or 0.0)
+    accum = max(int(cfg.train.grad_accum_steps or 1), 1)
+    remat_scope = str(cfg.train.remat_scope or "generator")
+    if cfg.train.remat and remat_scope not in REMAT_SCOPES:
+        raise ValueError(
+            f"train.remat_scope={remat_scope!r}: expected 'generator' | 'critic' | 'both'"
+        )
+    remat_gen = bool(cfg.train.remat) and remat_scope in ("generator", "both")
+    remat_critic = bool(cfg.train.remat) and remat_scope in ("critic", "both")
     g_params = list(gen.parameters())
     d_params = list(disc.parameters())
     rate = gen.feature_predict.dropout
     feature_dim = gen.feature_predict.fc.weight.shape[1]
+    critic = _remat(disc, disc) if remat_critic else disc
 
     def draws(b: int, device, generator, noise):
+        """[z, gp_eps, drop_mask_d, drop_mask_g], each (accum, b / accum, ...)."""
         noise = dict(noise or {})
         unknown = set(noise) - set(NOISE_KEYS)
         if unknown:
             raise ValueError(f"unknown noise keys {sorted(unknown)}; expected {NOISE_KEYS}")
+        m = b // accum
         makers = {
-            "z": lambda: torch.randn((b, zdim), generator=generator, device=device),
-            "gp_eps": lambda: torch.rand((b, 1, 1, 1), generator=generator, device=device),
-            "drop_mask_d": lambda: dropout_keep_mask((b, feature_dim), rate, generator, device),
-            "drop_mask_g": lambda: dropout_keep_mask((b, feature_dim), rate, generator, device),
+            "z": lambda: torch.randn((accum, m, zdim), generator=generator, device=device),
+            "gp_eps": lambda: torch.rand((accum, m, 1, 1, 1), generator=generator, device=device),
+            "drop_mask_d": lambda: dropout_keep_mask((accum, m, feature_dim), rate, generator, device),
+            "drop_mask_g": lambda: dropout_keep_mask((accum, m, feature_dim), rate, generator, device),
         }
-        return [
-            torch.as_tensor(noise[k], device=device) if k in noise else makers[k]()
-            for k in NOISE_KEYS
-        ]
+        out = []
+        for k in NOISE_KEYS:
+            if k not in noise:
+                out.append(makers[k]())
+                continue
+            given = torch.as_tensor(noise[k], device=device)
+            out.append(given.unsqueeze(0) if accum == 1 else given)
+        return out
 
     def g_forward(batch, z, mask):
         return gen(*(batch[k] for k in PATCH_KEYS), z, use_dropout=True, drop_mask=mask)
 
-    def set_grads(params, loss):
+    g_forward_grad = _remat(gen, g_forward) if remat_gen else g_forward
+
+    def set_grads(params, opt, loss, accumulate: bool = False):
+        """The gradients of ``loss`` into the parameters' ``.grad``: added
+        to it with ``accumulate``; else assigned, or, when ``opt`` is
+        capturable (``optim.make_capturable``: a CUDA graph replays the
+        addresses it captured), copied into fixed buffers made once. A
+        parameter the loss does not reach gets 0."""
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+        if accumulate:
+            used = [(p.grad, g) for p, g in zip(params, grads) if g is not None]
+            torch._foreach_add_([b for b, _ in used], [g for _, g in used])
+            return
+        if not opt.param_groups[0].get("capturable", False):
+            for p, g in zip(params, grads):
+                p.grad = torch.zeros_like(p) if g is None else g
+            return
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        used = [(p.grad, g) for p, g in zip(params, grads) if g is not None]
+        torch._foreach_copy_([b for b, _ in used], [g for _, g in used])
+        unused = [p.grad for p, g in zip(params, grads) if g is None]
+        if unused:
+            torch._foreach_zero_(unused)
 
     def prepare(batch: Batch, generator: torch.Generator, noise=None):
         """(device NCHW batch, [z, gp_eps, drop_mask_d, drop_mask_g]); both
-        models in train mode."""
+        models in train mode. The draws are (B, ...) in the plain step and
+        (accum, B / accum, ...) with accumulation."""
         device = g_params[0].device
         batch = _to_device_nchw(batch, device)
+        b = batch["img"].shape[0]
+        if b % accum:
+            raise ValueError(f"train.grad_accum_steps={accum} must divide the batch size {b}")
         gen.train()
         disc.train()
-        return batch, draws(batch["img"].shape[0], device, generator, noise)
+        noise_draws = draws(b, device, generator, noise)
+        return batch, [d[0] for d in noise_draws] if accum == 1 else noise_draws
 
-    def d_phase(batch, z, gp_eps, mask_d) -> Dict[str, torch.Tensor]:
-        """The critic's WGAN-GP loss; its gradients go to D's ``.grad``."""
+    def d_phase(batch, z, gp_eps, mask_d, accumulate: bool = False) -> Dict[str, torch.Tensor]:
+        """The critic's WGAN-GP loss on one (micro)batch; its gradients go
+        to D's ``.grad`` (added to it with ``accumulate``)."""
         real = batch["img_frontal"]
         with torch.no_grad():
             fake = g_forward(batch, z, mask_d).img128_fake
-        real_scores = disc(real)  # the only pass that advances D's BN stats
+        real_scores = critic(real)  # the only pass that advances D's BN stats
         with frozen_batch_stats(disc):
-            fake_scores = disc(fake)
-            gp = gradient_penalty(disc, real, fake, gp_eps.to(real.dtype))
+            fake_scores = critic(fake)
+            gp = gradient_penalty(critic, real, fake, gp_eps.to(real.dtype))
         w_loss = discriminator_loss(real_scores, fake_scores)
         d_loss = w_loss + loss_cfg.weight_gradient_penalty * gp
-        set_grads(d_params, d_loss)
+        set_grads(d_params, d_opt, d_loss, accumulate)
         return {"d_loss": d_loss, "d_wasserstein": w_loss, "d_gradient_penalty": gp,
                 "d_real_mean": real_scores.mean(), "d_fake_mean": fake_scores.mean()}
 
-    def g_phase(batch, z, mask_g) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(G loss, its components) against the critic as it stands; the
-        gradients go to G's ``.grad``."""
+    def g_phase(batch, z, mask_g, accumulate: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(G loss, its components) on one (micro)batch against the critic
+        as it stands; the gradients go to G's ``.grad`` (added to it with
+        ``accumulate``)."""
         with torch.no_grad():
             fused_frontal = fuse_parts(*(batch[k] for k in FRONTAL_PATCH_KEYS))
-        out = g_forward(batch, z, mask_g)
+        out = g_forward_grad(batch, z, mask_g)
         with frozen_batch_stats(disc):
-            fake_scores_g = disc(out.img128_fake)
+            fake_scores_g = critic(out.img128_fake)
         comps = generator_loss_components(
             fake128=out.img128_fake,
             fake_scores=fake_scores_g,
@@ -323,8 +426,15 @@ def make_gan_train_step(
             identity_embed=identity_embed,
         )
         g_loss = total_generator_loss(comps, loss_cfg)
-        set_grads(g_params, g_loss)
+        set_grads(g_params, g_opt, g_loss, accumulate)
         return g_loss, comps
+
+    def average_grads(params) -> None:
+        if accum > 1:
+            torch._foreach_div_([p.grad for p in params], float(accum))
+
+    def mean(values: List[torch.Tensor]) -> torch.Tensor:
+        return values[0] if len(values) == 1 else torch.stack(values).mean(0)
 
     def train_step(
         state: GANTrainState,
@@ -333,9 +443,21 @@ def make_gan_train_step(
         noise: Optional[Mapping[str, ArrayLike]] = None,
     ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         batch, (z, gp_eps, mask_d, mask_g) = prepare(batch, generator, noise)
-        d_metrics = d_phase(batch, z, gp_eps, mask_d)  # critic update (WGAN-GP)
+        if accum == 1:
+            micro = [batch]
+            z, gp_eps, mask_d, mask_g = ([t] for t in (z, gp_eps, mask_d, mask_g))
+        else:
+            m = batch["img"].shape[0] // accum
+            micro = [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(accum)]
+
+        # critic update (WGAN-GP), over the microbatches in turn
+        d_runs = [d_phase(mb, z[i], gp_eps[i], mask_d[i], accumulate=i > 0)
+                  for i, mb in enumerate(micro)]
+        average_grads(d_params)
         d_opt.step()
-        g_loss, comps = g_phase(batch, z, mask_g)  # generator update
+        # generator update, against the updated critic
+        g_runs = [g_phase(mb, z[i], mask_g[i], accumulate=i > 0) for i, mb in enumerate(micro)]
+        average_grads(g_params)
         g_opt.step()
 
         if ema_decay > 0.0 and state.g_ema_params:
@@ -345,8 +467,10 @@ def make_gan_train_step(
                 torch._foreach_add_(ema, g_params, alpha=1.0 - ema_decay)
         state.step += 1
 
-        metrics = {"d_loss": d_metrics.pop("d_loss"), "g_loss": g_loss, **d_metrics}
-        metrics.update({f"g_{k}": v for k, v in comps.items()})
+        d_metrics = {k: mean([r[k] for r in d_runs]) for k in d_runs[0]}
+        metrics = {"d_loss": d_metrics.pop("d_loss"), "g_loss": mean([r[0] for r in g_runs]),
+                   **d_metrics}
+        metrics.update({f"g_{k}": mean([r[1][k] for r in g_runs]) for k in g_runs[0][1]})
         return state, {k: v.detach() for k, v in metrics.items()}
 
     # the step's parts, for running one phase alone (the first-step bisect,
@@ -355,11 +479,122 @@ def make_gan_train_step(
     return train_step
 
 
-def make_multi_step(train_step, num_steps: int):
-    """K steps per host dispatch (``lax.scan`` in JAX); on the card this
-    becomes a CUDA-graph replay of the step, not yet ported."""
-    raise _not_ported("make_multi_step (K steps per dispatch, a CUDA graph on the card)")
+def _stack(history: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in history]) for k in history[0]}
 
+
+def _written_tensors(state: GANTrainState) -> List[torch.Tensor]:
+    """Every tensor a train step writes: both models' parameters, their
+    ``.grad`` buffers and BatchNorm buffers, the EMA weights and both
+    optimizers' state."""
+    params = [*state.gen.parameters(), *state.disc.parameters()]
+    out = [*params, *(p.grad for p in params if p.grad is not None),
+           *state.gen.buffers(), *state.disc.buffers(), *state.g_ema_params.values()]
+    for opt in (state.g_opt, state.d_opt):
+        for per_param in opt.state.values():
+            out.extend(v for v in per_param.values() if torch.is_tensor(v))
+    return out
+
+
+def make_multi_step(train_step, num_steps: int):
+    """K = ``num_steps`` train steps per host call — JAX's ``lax.scan``
+    over the step (``gan_trainer.py:487-510``).
+
+    ``multi_step(state, super_batch, generator) -> (state, metrics)``:
+    ``super_batch`` holds the step's batch keys with a leading (K, ...)
+    axis; ``metrics`` are the step's, stacked over the K steps. The step
+    count advances by K.
+
+    On the card the step is a CUDA graph, captured at the first call and
+    replayed K times per call, each batch first copied into the graph's
+    input buffers. The capture makes both optimizers capturable
+    (``optim.make_capturable``), for good: an eager step held against the
+    replays is built the same way. Before the capture, warm-up steps run
+    on a side stream and are then undone: the state's tensors, the
+    generator's state and the step count are put back as they were. The
+    graph keeps the state's tensors and ``generator``: a later call must
+    pass the same state and generator and batches of the same shapes, and
+    a state whose tensors were replaced since (an optimizer's
+    ``load_state_dict``, for one) makes it raise, as does a failed
+    capture; nothing falls back to eager steps. Replays add nothing to
+    ``ops.kernels.launch_counts``; ``multi_step.launches()`` is the
+    capture's record of one replay. On the CPU it runs K eager steps (the
+    plain form)."""
+    if num_steps < 1:
+        raise ValueError(f"make_multi_step needs num_steps >= 1, got {num_steps}")
+    captured: Dict[str, Any] = {}
+
+    def split(super_batch: Batch) -> List[Dict[str, torch.Tensor]]:
+        batch = {k: torch.as_tensor(v) for k, v in super_batch.items()}
+        lead = {v.shape[0] for v in batch.values()}
+        if lead != {num_steps}:
+            raise ValueError(f"the super-batch's leading axes {sorted(lead)} != num_steps "
+                             f"{num_steps}")
+        return [{k: v[i] for k, v in batch.items()} for i in range(num_steps)]
+
+    def capture(state, first: Dict[str, torch.Tensor], generator):
+        device = next(state.gen.parameters()).device
+        make_capturable(state.g_opt)
+        make_capturable(state.d_opt)
+        inputs = {k: v.to(device, copy=True) for k, v in first.items()}
+        # detached copies: a clone that autograd records would keep each
+        # parameter's AccumulateGrad node alive on this stream through the
+        # capture, which the capture cannot take
+        with torch.no_grad():
+            saved = [(t, t.clone()) for t in _written_tensors(state)]
+        rng, step = generator.get_state(), state.step
+
+        def reset():
+            kept = {id(t): copy for t, copy in saved}
+            with torch.no_grad():
+                for t in _written_tensors(state):
+                    if id(t) in kept:
+                        t.copy_(kept[id(t)])
+                    else:  # made by the warm-up: Adam's moments and count, .grad
+                        t.zero_()
+            generator.set_state(rng)
+            state.step = step
+
+        graph, (_state, metrics), launches = graphs.capture(
+            lambda: train_step(state, inputs, generator), GRAPH_WARMUP_CALLS, reset, (generator,))
+        state.step = step
+        captured.update(graph=graph, metrics=metrics, launches=launches, inputs=inputs,
+                        state=state, generator=generator,
+                        ptrs=[t.data_ptr() for t in _written_tensors(state)])
+
+    def multi_step(state: GANTrainState, super_batch: Batch, generator: torch.Generator):
+        batches = split(super_batch)
+        if next(state.gen.parameters()).device.type != "cuda":
+            history = []
+            for batch in batches:
+                state, metrics = train_step(state, batch, generator)
+                history.append(metrics)
+            return state, _stack(history)
+        if not captured:
+            capture(state, batches[0], generator)
+        c = captured
+        if state is not c["state"] or generator is not c["generator"]:
+            raise ValueError("a captured multi-step replays the state and generator it was "
+                             "captured with; build a new one for another")
+        if [t.data_ptr() for t in _written_tensors(state)] != c["ptrs"]:
+            raise RuntimeError("the state's tensors were replaced since the capture (a restore "
+                               "or a new optimizer state); build a new multi-step")
+        shapes = {k: (v.shape, v.dtype) for k, v in c["inputs"].items()}
+        if {k: (v.shape, v.dtype) for k, v in batches[0].items()} != shapes:
+            raise ValueError(f"batch shapes differ from the captured ones {shapes}")
+        history = []
+        for batch in batches:
+            for k, buf in c["inputs"].items():
+                buf.copy_(batch[k], non_blocking=True)
+            c["graph"].replay()
+            history.append({k: v.clone() for k, v in c["metrics"].items()})
+        state.step += num_steps
+        return state, _stack(history)
+
+    # the graph's launches per replay (``ops.kernels.CapturedLaunches``),
+    # once captured
+    multi_step.launches = lambda: captured["launches"].per_replay if captured else None
+    return multi_step
 
 def _compute_copy(gen: Generator, dtype: torch.dtype) -> Generator:
     """A copy of ``gen`` whose conv and linear weights are in ``dtype``.
@@ -405,3 +640,45 @@ def make_synthesize_fn(
         return out.img128_fake.permute(0, 2, 3, 1).contiguous()
 
     return synthesize
+
+
+SYNTHESIS_KEYS = ("img", "left_eye", "right_eye", "nose", "mouth")
+
+
+def make_graphed_synthesize_fn(
+    cfg: Config, gen: Generator
+) -> Callable[[Mapping[str, ArrayLike], ArrayLike], torch.Tensor]:
+    """:func:`make_synthesize_fn`'s function with the same contract, each
+    forward one CUDA-graph replay on the card: the graph is captured at the
+    first call of each batch shape (after warm-up calls on a side stream),
+    and every call copies its inputs into that graph's buffers, replays it
+    and returns a copy of its output. A failed capture raises; nothing
+    falls back to eager calls. On the CPU it is the eager function (the
+    plain form). The counterpart of the JAX bench's jitted ``lax.scan``
+    of synthesis forwards (``bench.py:85-164``)."""
+    synthesize = make_synthesize_fn(cfg, gen)
+    device = next(gen.parameters()).device
+    if device.type != "cuda":
+        return synthesize
+    captured: Dict[tuple, tuple] = {}
+
+    @torch.inference_mode()
+    def graphed(batch: Mapping[str, ArrayLike], z: ArrayLike) -> torch.Tensor:
+        args = [torch.as_tensor(batch[k]) for k in SYNTHESIS_KEYS] + [torch.as_tensor(z)]
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in captured:
+            static = [a.to(device, copy=True) for a in args]
+            static_batch = dict(zip(SYNTHESIS_KEYS, static))
+            graph, out, launches = graphs.capture(
+                lambda: synthesize(static_batch, static[-1]), GRAPH_WARMUP_CALLS)
+            captured[key] = (static, graph, out, launches)
+        static, graph, out, launches = captured[key]
+        for buf, a in zip(static, args):
+            buf.copy_(a, non_blocking=True)
+        graph.replay()
+        return out.clone()
+
+    # {batch size: the launches of one replay}, for each captured shape
+    graphed.launches = lambda: {static[0].shape[0]: launches.per_replay
+                                for static, _graph, _out, launches in captured.values()}
+    return graphed
