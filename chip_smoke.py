@@ -103,10 +103,29 @@ Phases, each of which exits non-zero on failure:
                  and held against the eager form on another: bf16 and f32
                  bit-equal (f32 with deterministic cuDNN); a profile of one
                  replay whose trace holds 3 fuse kernels while the wrappers
-                 launch nothing; images/s of both.
+                 launch nothing; images/s of both;
+14. data       — the port's data path: (a) the procedural Multi-PIE
+                 protocol (8 subjects x 9 cameras, 64 training items)
+                 rendered, prepared and written as PNGs, then packed into
+                 uint8 shards; (b) ``run_gan_training`` at full size, bf16,
+                 batch 16, 4 steps per dispatch, 8 steps, fed by the shards
+                 through 2 loader workers, pinned memory and
+                 ``prefetch_to_device``; (c) the same loop fed by
+                 ``device_batch_iterator`` from the 64 items repeated to
+                 2,560 (0.42 GB) in device memory, yaw-weighted; in both,
+                 metrics finite and every batch the step received equal to
+                 its host copy (position-weighted checksums on the card
+                 and on the host); (d) an f32 step on a uint8 batch equal
+                 to the step on the batch decoded beforehand, bit for bit,
+                 and its profiler trace's host-to-device bytes equal to
+                 the uint8 batch's; (e) ``bench_loader``'s four input
+                 paths at batch 16 and 64 beside the graphed step's
+                 images/s (phase 11), and the loop rates beside phase 10's.
+                 Its launches are printed on their own line, not counted
+                 in the ``kernels`` line.
 
-Counts are set to 0 just before each path (serve, train, conv A/B, loop) is
-driven and read just after; launches made to compare a kernel with its
+Counts are set to 0 just before each path (serve, train, conv A/B, loop,
+and phase 14's two loops) is driven and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
 launches are the wrappers' own, and the profiler traces of phases 11 and 13
@@ -118,6 +137,7 @@ Imports nothing of JAX; needs one GPU.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -125,6 +145,7 @@ import json
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -196,9 +217,100 @@ LOOP_RESUME_TO = 12
 MULTI_K = 3  # phase 11
 GRAPHED_DISPATCHES = 5  # phase 11's timing: 20 steps after the capture
 OPTION_STEPS = 2  # phase 12, timed after one step
+# phase 14: the data path. 8 subjects x 9 cameras: 64 training items (the
+# profiles; the frontal view is each one's twin); the device-resident pack
+# repeats them 40 times, 2,560 items, the size of the full Multi-PIE GAN
+# layout (0.42 GB uint8)
+DATA_SUBJECTS = 8
+DATA_REPEAT = 40
+DATA_WORKERS = 2
+LOADER_WORKERS = 4
+LOADER_BATCHES = 16
+HTOD_TRACES = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts, so that
+    a grandchild whose parent exits first (a data-loader worker, a
+    compiler's child) becomes its child, where stop_processes finds it."""
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+
+
+def children(parent=None) -> dict:
+    """{pid: (state, command line)} of the children of ``parent`` (this
+    process by default), from /proc."""
+    parent, out = parent or os.getpid(), {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()  # state, ppid, ...
+        if int(fields[1]) == parent:
+            out[int(entry)] = (fields[0], cmd[:200] or stat.split(" ", 2)[1])
+    return out
+
+
+def stop_processes(grace_s: float = 10.0) -> dict:
+    """Stop every process of this run that still runs, before the script
+    exits, and return those that were left, {pid: (state, command line)}.
+    The data loader's worker server and its resource tracker are stopped
+    as ``pipeline.stop_worker_server`` stops them (Python would stop them
+    only after the program has exited, and the server outlives it while
+    its preload still runs). A worker that still runs (an iterator a
+    failure left open) holds the server, so it is sent SIGTERM first.
+    Then every other child, orphans included, gets SIGTERM and after
+    ``grace_s`` SIGKILL, round by round until none is left, each reaped."""
+    import signal
+    import threading
+
+    left = {}
+    # the run is over: DataLoader's SIGCHLD handler would raise on a
+    # worker stopped here
+    signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+    pipeline = sys.modules.get("tpgan_tpu_torch.data.pipeline")
+    if pipeline is not None:
+        from multiprocessing import forkserver
+
+        server = forkserver._forkserver._forkserver_pid
+        workers = children(server) if server else {}
+        for pid, (state, _) in workers.items():
+            if state != "Z":
+                left[pid] = workers[pid]
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGTERM)
+        # bounded: what still holds the server after grace_s is killed below
+        stopper = threading.Thread(target=pipeline.stop_worker_server, daemon=True)
+        stopper.start()
+        stopper.join(grace_s)
+    deadline = time.monotonic() + grace_s
+    while True:
+        now = children()
+        if not now:
+            break
+        late = time.monotonic() > deadline
+        for pid, (state, cmd) in now.items():
+            left.setdefault(pid, (state, cmd))
+            if state != "Z":
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL if late else signal.SIGTERM)
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0 if late else os.WNOHANG)
+        time.sleep(0.05)
+    return left
 
 
 def make_parts(batch, channels, dtype, seed, device):
@@ -768,8 +880,9 @@ def run_loop(dev, tag, eager_rate):
     """Phase 10: ``run_gan_training`` at full size, bf16, batch 16, K = 4
     steps per dispatch (the graphed step), 8 steps with a checkpoint and
     a sample every 4 steps, then a resume to 12. Returns the wrappers'
-    launches in both runs: each capture's warm-up steps and each sample's
-    forward (the graph's replays run no wrapper)."""
+    launches in both runs (each capture's warm-up steps and each sample's
+    forward: the graph's replays run no wrapper) and the logged
+    ``imgs_per_sec`` of both runs."""
     import numpy as np
     import torch
 
@@ -851,7 +964,7 @@ def run_loop(dev, tag, eager_rate):
         f"{multis[-1].launches()}; imgs_per_sec per logged window {rates} (steps "
         f"{LOOP_EVERY + 1}-{2 * LOOP_EVERY}: graph replays only) against the eager step's "
         f"{eager_rate:.1f} (phase 8) {tag}")
-    return total
+    return total, rates
 
 
 def run_multi_step_f32(dev):
@@ -983,7 +1096,8 @@ def time_graphed_step(dev, tag, eager):
     dispatches back to back, after what the capturable optimizers cost
     the eager step (:func:`capturable_cost`); at batch 16, then, a profile
     of two dispatches whose trace must hold each kernel's launches per
-    replayed step while the wrappers launch nothing."""
+    replayed step while the wrappers launch nothing. Returns images/s
+    per batch size."""
     import numpy as np
     import torch
 
@@ -998,6 +1112,7 @@ def time_graphed_step(dev, tag, eager):
 
     cfg = make_config({"compute_dtype": "bfloat16"})
     capturable_cost(dev, tag, cfg)
+    rates = {}
     for batch in (TRAIN_BATCH, 64):
         gc.collect()
         torch.cuda.empty_cache()
@@ -1018,6 +1133,7 @@ def time_graphed_step(dev, tag, eager):
             if not torch.isfinite(metrics[k].float()).all():
                 raise AssertionError(f"graphed step batch {batch}: non-finite {k}")
         peak = torch.cuda.max_memory_allocated() / 2**30
+        rates[batch] = batch / dt
         log(f"time: graphed train step bf16 full size batch {batch}: {dt * 1e3:.2f} ms/step = "
             f"{batch / dt:.1f} images/s ({GRAPHED_DISPATCHES} dispatches of {LOOP_K} replays "
             f"after the capture, batches copied in from the host; eager {eager[batch][0]:.1f} "
@@ -1043,6 +1159,7 @@ def time_graphed_step(dev, tag, eager):
                 f"per step); the wrappers launched nothing {tag}")
             del box
         del state, gen, disc, g_opt, d_opt, multi, metrics
+    return rates
 
 
 def run_options(dev, tag, plain_peak):
@@ -1164,6 +1281,375 @@ def run_graphed_synthesis(dev, tag):
         torch.cuda.empty_cache()
     _f32_exact(False)
     log(f"graphed synthesis: {'; '.join(lines)} {tag}")
+
+
+def checksum(t):
+    """A position-weighted int64 sum of a tensor's values, exact on the
+    card and on the host: equal for equal bytes in equal places."""
+    import torch
+
+    v = t.reshape(-1).to(torch.int64)
+    w = (torch.arange(v.numel(), device=v.device, dtype=torch.int64) * 40503 + 1) % 65521
+    return (v * w).sum()
+
+
+def host_sums(batch):
+    """{key: checksum} of a host batch (numpy arrays or CPU tensors)."""
+    import torch
+
+    return {k: int(checksum(torch.as_tensor(v))) for k, v in sorted(batch.items())}
+
+
+def repeat_pack(src, dst, times):
+    """The pack at ``src`` with its items ``times`` over, as one shard."""
+    import numpy as np
+
+    from tpgan_tpu_torch.data.packing import INDEX_NAME, shard_path
+
+    with open(os.path.join(src, INDEX_NAME)) as f:
+        meta = json.load(f)
+    os.makedirs(dst)
+    size = 0
+    for key in meta["keys"]:
+        one = np.concatenate([np.load(shard_path(src, s, key)) for s in range(len(meta["shards"]))])
+        whole = np.concatenate([one] * times)
+        np.save(shard_path(dst, 0, key), whole)
+        size += whole.nbytes
+    n = meta["num_items"] * times
+    with open(os.path.join(dst, INDEX_NAME), "w") as f:
+        json.dump({**meta, "num_items": n, "shards": [n], "names": meta["names"] * times}, f)
+    return size
+
+
+def htod_copies(fn, dev):
+    """(host-to-device copies in bytes, in device order; device events) in
+    a profiler trace of ``fn()``, read from the exported trace's
+    ``gpu_memcpy`` and ``kernel`` events; a 1-byte copy runs first and is
+    left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, dtype=torch.uint8).to(dev)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        with open(os.path.join(d, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    copies = sorted((e["ts"], int(e.get("args", {}).get("bytes", -1))) for e in events
+                    if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    device = sum(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events)
+    return [b for _, b in copies if b != 1], device
+
+
+def f32_step_batches(ds):
+    """Phase 14 (d)'s batch: the pack's first TRAIN_F32_BATCH items as
+    uint8, and decoded on the host as the step decodes them."""
+    import numpy as np
+
+    items = [ds[i] for i in range(TRAIN_F32_BATCH)]
+    u8 = {k: np.stack([it[k] for it in items]) for k in items[0]}
+    decoded = {k: (2.0 * v.astype(np.float32) - 255.0) / 255.0 if v.dtype == np.uint8 else v
+               for k, v in u8.items()}
+    return u8, decoded
+
+
+def htod_traces(pack, device="cuda"):
+    """Run in a fresh process by phase 14 (d) (``python3 -c "import
+    chip_smoke; chip_smoke.htod_traces(pack)"``): an eager f32 step at
+    batch TRAIN_F32_BATCH on the pack's first items, uint8 and decoded on
+    the host, each profiled in HTOD_TRACES sessions of one step, after an
+    unprofiled step. Prints, as its last line, {mode: {"handed": bytes of
+    each leaf the step moved, "traces": [[copy bytes], ...], "device":
+    [device events per trace]}}. In the smoke's own process, after its
+    earlier profiles, a trace showed no copy at all; in a fresh one a
+    trace has missed the first copy of a step, never shown one that was
+    not made."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.packing import PackedDataset
+    from tpgan_tpu_torch.train import gan_trainer
+
+    dev = torch.device(device)
+    ds = PackedDataset(pack, to_float=False)
+    u8, decoded = f32_step_batches(ds)
+    cfg = make_config({"compute_dtype": "float32"})
+    state, gen, disc, g_opt, d_opt = gan_trainer.create_gan_state(cfg, seed=0, device=dev)
+    step = gan_trainer.make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+    box = [step(state, u8, torch.Generator(device=dev).manual_seed(0))[0]]  # unprofiled
+    handed = []
+    real = gan_trainer._to_device
+
+    def spy(x, device):
+        handed.append(np.asarray(x).nbytes)
+        return real(x, device)
+
+    out = {}
+    for mode, batch in (("uint8", u8), ("decoded", decoded)):
+        def one():
+            box[0], _ = step(box[0], batch, torch.Generator(device=dev).manual_seed(1))
+
+        traces, device = [], []
+        with mock.patch.object(gan_trainer, "_to_device", spy):
+            for _ in range(HTOD_TRACES):
+                handed.clear()
+                copies, events = htod_copies(one, dev)
+                traces.append(copies)
+                device.append(events)
+        out[mode] = {"handed": list(handed), "traces": traces, "device": device}
+    print(json.dumps(out))
+
+
+def run_data_loop(dev, cfg, feed, log_dir):
+    """Phase 14's loop: ``run_gan_training`` over ``feed`` for 8 steps, K =
+    LOOP_K per dispatch (the CUDA graph). Returns the checksums of every
+    batch the step received (taken on the card, in the step's stream),
+    the logged ``imgs_per_sec``, the wrapper launches and the wall time."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train import loop as loop_module
+    from tpgan_tpu_torch.train.gan_trainer import GRAPH_WARMUP_CALLS
+    from tpgan_tpu_torch.train.loop import run_gan_training
+    from tpgan_tpu_torch.train.metrics import MetricWriter
+
+    received = []
+    real = loop_module.make_multi_step
+
+    def spy(step, k):
+        multi = real(step, k)
+
+        def spied(state, super_batch, generator):
+            received.append({key: torch.stack([checksum(v[i]) for i in range(k)])
+                             for key, v in sorted(super_batch.items())})
+            return multi(state, super_batch, generator)
+
+        return spied
+
+    writer = MetricWriter(log_dir, use_tensorboard=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop_module, "make_multi_step", spy):
+        state = run_gan_training(cfg, feed, steps=LOOP_STEPS, writer=writer, log_every=LOOP_EVERY,
+                                 steps_per_dispatch=LOOP_K, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    writer.close()
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not np.isfinite(v)]
+    if state.step != LOOP_STEPS or [r["step"] for r in rows] != [LOOP_EVERY, LOOP_STEPS] or bad:
+        raise AssertionError(f"data loop: step {state.step}, metrics at {[r['step'] for r in rows]}, "
+                             f"non-finite {bad}")
+    want = {k: v * GRAPH_WARMUP_CALLS for k, v in PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"data loop: launches {launches}, expected {want} (the warm-up steps "
+                             "before the capture)")
+    sums = [{k: int(v[i]) for k, v in r.items()} for r in received for i in range(LOOP_K)]
+    return sums, [r["imgs_per_sec"] for r in rows], launches, wall
+
+
+def run_uint8_step(dev, tag, ds, pack):
+    """Phase 14 (d): one eager f32 step on a uint8 numpy batch equals the
+    step on the same batch decoded on the host beforehand, bit for bit
+    (TF32 off, deterministic cuDNN); then the
+    host-to-device copies of each in profiler traces taken in a fresh
+    process (:func:`htod_traces`): the uint8 batch's bytes, against four
+    times its image bytes for the decoded one. Every trace's copies are
+    among those the step made; at least one trace of each holds them
+    all."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.train.gan_trainer import create_gan_state, make_gan_train_step
+
+    cfg = make_config({"compute_dtype": "float32"})
+    u8, decoded = f32_step_batches(ds)
+    _f32_exact(True)
+    out = {}
+    # no warm-up step: phases 7 and 11 took this process's first f32 steps,
+    # whose last bits differ from later ones (ROADMAP C2)
+    for name, batch in (("uint8", u8), ("decoded", decoded)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {**{"g." + k: v.clone() for k, v in state.gen.state_dict().items()},
+                      **{"d." + k: v.clone() for k, v in state.disc.state_dict().items()},
+                      **{"ema." + k: v.clone() for k, v in state.g_ema_params.items()}})
+        del state, gen, disc, g_opt, d_opt, step
+    _f32_exact(False)
+    (m8, s8), (mf, sf) = out["uint8"], out["decoded"]
+    differ = sum(int((s8[k] != sf[k]).sum()) for k in s8)
+    total = sum(v.numel() for v in s8.values())
+    if m8 != mf or differ:
+        raise AssertionError(f"uint8 step: {differ} of {total} state elements and metrics "
+                             f"{[k for k in m8 if m8[k] != mf.get(k)]} differ from the decoded step")
+    del out, s8, sf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.htod_traces({pack!r})"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the traced steps' process exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"uint8": sum(v.nbytes for v in u8.values()),
+            "decoded": sum(v.nbytes for v in decoded.values())}
+    lines = []
+    for mode, r in traced.items():
+        handed = r["handed"]
+        extra = [dict(collections.Counter(c) - collections.Counter(handed)) for c in r["traces"]]
+        complete = [c for c in r["traces"] if sorted(c) == sorted(handed)]
+        if sum(handed) != want[mode] or any(extra) or not complete:
+            raise AssertionError(f"{mode} step: moved {handed} ({sum(handed)} B, the batch is "
+                                 f"{want[mode]} B); traces {r['traces']} (beyond the moved "
+                                 f"copies: {extra})")
+        lines.append(f"{mode}: moves {len(handed)} leaves, {sum(handed)} B; the traces hold "
+                     f"{[len(c) for c in r['traces']]} copies ({len(complete)} of "
+                     f"{len(r['traces'])} complete: {sum(complete[0])} B), device events "
+                     f"{r['device']}")
+    log(f"data (d): f32 step batch {TRAIN_F32_BATCH} on a uint8 batch against the host-decoded "
+        f"batch: 0 of {total} state elements and 0 of {len(m8)} metrics differ. Host-to-device "
+        f"copies per step, traced in a fresh process ({time.perf_counter() - t0:.1f} s): "
+        f"{'; '.join(lines)}; the uint8 batch is {want['uint8']} B {tag}")
+
+
+def run_data(dev, tag, graphed_rates, loop_rates):
+    """Phase 14: the data path at full size, bf16. (a) the procedural
+    Multi-PIE protocol rendered and written by the port; (b) the loop fed
+    from packed shards through worker processes, pinned memory and
+    ``prefetch_to_device``; (c) the loop fed from a 0.42 GB pack held in
+    device memory, yaw-weighted; every batch the step received against its
+    host copy, by checksum; (d) the uint8 step against the decoded one;
+    (e) ``bench_loader``'s four paths at batch 16 and 64 beside the
+    graphed step (phase 11) and the loop rates beside phase 10's."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data import bench_loader
+    from tpgan_tpu_torch.data.multipie import TrainDataset, camera_token
+    from tpgan_tpu_torch.data.packing import (
+        PackedDataset,
+        device_batch_iterator,
+        load_packed_to_device,
+        pack_dataset,
+        shard_path,
+    )
+    from tpgan_tpu_torch.data.pipeline import batch_iterator, prefetch_to_device
+    from tpgan_tpu_torch.data.synthetic_faces import ALL_CAMERA_YAWS, generate_gan_protocol
+
+    cfg = make_config({"compute_dtype": "bfloat16", "train": {"batch_size": TRAIN_BATCH}})
+    seed = cfg.train.seed
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        # (a) files
+        t0 = time.perf_counter()
+        img_list = generate_gan_protocol(os.path.join(root, "mp"), DATA_SUBJECTS)
+        t_files = time.perf_counter() - t0
+        pack = os.path.join(root, "packed")
+        t0 = time.perf_counter()
+        pack_dataset(TrainDataset(img_list), pack)
+        t_pack = time.perf_counter() - t0
+        ds = PackedDataset(pack, to_float=False)
+        if len(img_list) != DATA_SUBJECTS * 8 or len(ds) != len(img_list):
+            raise AssertionError(f"data: {len(img_list)} training items, {len(ds)} packed")
+        log(f"data (a): {DATA_SUBJECTS} subjects x 9 cameras rendered, prepared (Lanczos "
+            f"pyramids, patches) and written as PNGs in {t_files:.1f} s: {len(img_list)} training "
+            f"items; packed in {t_pack:.1f} s")
+
+        # (b) shards -> worker processes -> pinned memory -> prefetch
+        inner = batch_iterator(ds, TRAIN_BATCH, seed=seed, num_workers=DATA_WORKERS,
+                               pin_memory=True)
+        feed = prefetch_to_device(inner, size=2, device=dev)
+        got, rates_b, launches_b, wall_b = run_data_loop(dev, cfg, feed, os.path.join(root, "b"))
+        feed.close()
+        inner.close()
+        host = [host_sums(b) for b in itertools.islice(
+            batch_iterator(ds, TRAIN_BATCH, seed=seed, num_workers=0), LOOP_STEPS)]
+        if got != host:
+            bad = [i for i, (g, h) in enumerate(zip(got, host)) if g != h]
+            raise AssertionError(f"data (b): batches {bad} of {len(host)} that the step received "
+                                 f"differ from their host copies ({len(got)} received)")
+        log(f"data (b): run_gan_training full size bf16 batch {TRAIN_BATCH}, {LOOP_K} steps per "
+            f"dispatch (CUDA graph), fed by PackedDataset(uint8) -> batch_iterator("
+            f"{DATA_WORKERS} workers, pinned) -> prefetch_to_device(2): {LOOP_STEPS} steps in "
+            f"{wall_b:.1f} s, metrics finite, all {len(got)} batches the step received equal "
+            f"their host copies (checksums over {len(got[0])} keys each); imgs_per_sec per logged "
+            f"window {[round(r, 1) for r in rates_b]} {tag}")
+
+        # (c) the whole pack in device memory, yaw-weighted sampling
+        big = os.path.join(root, "packed_x40")
+        size = repeat_pack(pack, big, DATA_REPEAT)
+        names = PackedDataset(big).names
+        yaws = np.asarray([abs(ALL_CAMERA_YAWS.get(camera_token(n), 0.0)) for n in names])
+        weights = 1.0 + (yaws / 90.0) ** 2  # train.yaw_weight_gamma = 1
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        data = load_packed_to_device(big, dev)
+        torch.cuda.synchronize()
+        t_load, after = time.perf_counter() - t0, torch.cuda.memory_allocated()
+        got_c, rates_c, launches_c, wall_c = run_data_loop(
+            dev, cfg, device_batch_iterator(data, TRAIN_BATCH, seed=seed, weights=weights),
+            os.path.join(root, "c"))
+        arrays = {k: np.load(shard_path(big, 0, k), mmap_mode="r") for k in data}
+        rng, p = np.random.RandomState(seed), weights / weights.sum()
+        host_c = []
+        for _ in range(LOOP_STEPS):
+            idx = rng.choice(len(names), size=(TRAIN_BATCH,), p=p)
+            host_c.append(host_sums({k: np.ascontiguousarray(a[idx]) for k, a in arrays.items()}))
+        if got_c != host_c:
+            bad = [i for i, (g, h) in enumerate(zip(got_c, host_c)) if g != h]
+            raise AssertionError(f"data (c): gathered batches {bad} differ from a host gather of "
+                                 f"the same indices ({len(got_c)} received)")
+        del data, arrays
+        torch.cuda.empty_cache()
+        log(f"data (c): {len(names)} items ({size / 1e9:.3f} GB uint8) loaded to the card in "
+            f"{t_load:.2f} s: allocated {before / 2**30:.2f} -> {after / 2**30:.2f} GiB; "
+            f"run_gan_training from device_batch_iterator (yaw weights 1 + (|yaw|/90)^2, "
+            f"{weights.min():.2f}-{weights.max():.2f}): {LOOP_STEPS} steps in {wall_c:.1f} s, "
+            f"metrics finite, all {len(got_c)} gathered batches equal a host gather of the same "
+            f"indices; imgs_per_sec per logged window {[round(r, 1) for r in rates_c]} {tag}")
+        log(f"data: wrapper launches {launches_b} in (b) and {launches_c} in (c), each the "
+            f"{PER_STEP} per step of the warm-up steps before its capture")
+
+        # (d) the uint8 transfer
+        run_uint8_step(dev, tag, ds, pack)
+
+        # (e) loader rates against the step's
+        t0 = time.perf_counter()
+        for batch in (TRAIN_BATCH, 64):
+            rows = bench_loader.run(os.path.join(root, "mp", "img.list"), pack, batch,
+                                    batches=LOADER_BATCHES, num_workers=LOADER_WORKERS, device=dev)
+            for r in rows:
+                log(json.dumps(r))
+            rates = ", ".join(f"{r['path']} {r['imgs_per_sec']:.1f}" for r in rows)
+            log(f"data (e): loader images/s at batch {batch}: {rates}; the graphed step eats "
+                f"{graphed_rates[batch]:.1f} (phase 11) {tag}")
+        log(f"data (e): {time.perf_counter() - t0:.1f} s for the loader rates; the loop's "
+            f"imgs_per_sec per window: shards {[round(r, 1) for r in rates_b]}, device "
+            f"{[round(r, 1) for r in rates_c]}, synthetic batches (phase 10) {loop_rates}")
+    log(f"data: phase 14 took {time.perf_counter() - start:.1f} s")
 
 
 def profile(fn, iters, what, unit, tag, names, before=None):
@@ -1415,11 +1901,15 @@ def main() -> int:
 
     # ---- 10-13. the loop, multi-step, options, graphed synthesis ----
     torch.cuda.empty_cache()
-    loop_launches = run_loop(dev, tag, train_rates[TRAIN_BATCH][0])
+    loop_launches, loop_rates = run_loop(dev, tag, train_rates[TRAIN_BATCH][0])
     run_multi_step_f32(dev)
-    time_graphed_step(dev, tag, train_rates)
+    graphed_rates = time_graphed_step(dev, tag, train_rates)
     run_options(dev, tag, train_rates[TRAIN_BATCH][1])
     run_graphed_synthesis(dev, tag)
+
+    # ---- 14. data: the loop fed from files, shards and device memory ----
+    torch.cuda.empty_cache()
+    run_data(dev, tag, graphed_rates, loop_rates)
 
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
@@ -1472,10 +1962,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    adopt_orphans()
     try:
         code = main()
     except Exception:
         traceback.print_exc()
         print("FAIL: chip smoke run failed", flush=True)
         code = 1
+    # on stderr: the last line of stdout stays the result
+    for pid, (state, cmd) in stop_processes().items():
+        print(f"stopped a process left running: {pid} ({state}) {cmd}", file=sys.stderr, flush=True)
     sys.exit(code)

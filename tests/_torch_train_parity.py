@@ -64,11 +64,13 @@ class Pair:
     gives the noise a leading microbatch axis, as the JAX step draws it)."""
 
     def __init__(self, use_batchnorm: bool = False, seed: int = 0, batch: int = BATCH,
-                 train=None):
+                 train=None, data=None):
         ov = overrides(use_batchnorm, train)
         self.jcfg, self.cfg = jax_make_config(ov), make_config(ov)
         self.jgen, self.jdisc = jax_build_models(self.jcfg)
-        self.batch = synthetic_gan_batch(batch, seed=seed + 10)
+        # ``data``: a float batch of ``batch`` items in place of the
+        # synthetic one
+        self.batch = synthetic_gan_batch(batch, seed=seed + 10) if data is None else data
         imgs = [self.batch[k] for k in PATCH_KEYS]
         z0 = np.zeros((batch, self.cfg.G.zdim), np.float32)
         self.g_params, self.g_stats = init_numpy(self.jgen, *imgs, z0, seed=seed + 1)

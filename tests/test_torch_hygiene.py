@@ -1,6 +1,8 @@
-"""Rules of the PyTorch port: it imports nothing of JAX and nothing of
-``tpgan_tpu`` (not even its jax-free modules), and its entry points never
-drift to the CPU on their own."""
+"""Rules of the PyTorch port: it imports nothing of JAX, nothing of
+``tpgan_tpu`` (not even its jax-free modules) and no imaging package (the
+card's machine is not promised one: the port reads, writes and resizes
+images itself, ``data/imageio.py``), and its entry points never drift to
+the CPU on their own."""
 
 import ast
 import subprocess
@@ -19,7 +21,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpgan_tpu")
+# PIL: the card's machine is not promised an imaging package
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpgan_tpu", "PIL")
 
 
 def _imported_modules(path: Path):

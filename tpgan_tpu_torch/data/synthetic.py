@@ -1,7 +1,7 @@
 """Synthetic data generators — the port's numpy copy of
-``tpgan_tpu/data/synthetic.py::synthetic_gan_batch`` (fixed-seed random
-tensors with the batch contract of the real datasets). Same seed, same
-arrays as the JAX package's copy."""
+``tpgan_tpu/data/synthetic.py`` (fixed-seed random tensors with the batch
+contracts of the real datasets). Same seed, same arrays as the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -37,3 +37,17 @@ def synthetic_gan_batch(
         "label": rng.randint(0, num_classes, (batch_size,)).astype(np.int32),
     }
     return batch
+
+
+def synthetic_pretrain_batch(
+    batch_size: int, image_size: int = 256, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """A landmark-pretraining batch: images in [0, 1] and 8 landmark
+    coordinates per image."""
+    rng = np.random.RandomState(seed)
+    return {
+        "image": rng.uniform(0, 1, (batch_size, image_size, image_size, 3)).astype(
+            np.float32
+        ),
+        "label": rng.uniform(0, image_size, (batch_size, 8)).astype(np.float32),
+    }

@@ -8,6 +8,9 @@ the checkout, which ``.gitignore`` lists. A library's file name carries a
 hash of its source and the flags, so an edited source is never served by
 a stale build; ``nvcc``'s own output (``-Xptxas -v``: registers, shared
 memory, spills) is kept beside it as ``<name>.log``.
+
+The data pipeline's host library (``csrc/host/tpgan_host.cpp``) builds
+the same way with ``g++`` (:func:`build_host`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 600
+HOST_SOURCE = "host/tpgan_host.cpp"
+# no -march=native: the build directory is copied with the checkout, and
+# a library tuned to one host's CPU could fault on another's
+HOST_FLAGS = ("-O3", "-shared", "-fPIC")
+HOST_TIMEOUT_S = 180
 
 
 def _nvcc() -> str:
@@ -43,9 +51,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, flags: Sequence[str] = NVCC_FLAGS) -> Path:
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -88,3 +96,27 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
 def load(source: str) -> ctypes.CDLL:
     """The built library of ``source``, building it first if needed."""
     return ctypes.CDLL(str(build((source,))[source]))
+
+
+def build_host() -> Path:
+    """Compile the host library with ``g++`` unless it is built already,
+    and return its path. Raises with the compiler's output if the build
+    fails: the data path has no fallback."""
+    lib = library_path(HOST_SOURCE, HOST_FLAGS)
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on PATH to build "
+                           f"{CSRC / HOST_SOURCE}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a file of this process's own, renamed into place: data-loader
+    # workers may build at the same time
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([cxx, *HOST_FLAGS, str(CSRC / HOST_SOURCE), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=HOST_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host library build failed ({cxx} exited {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

@@ -210,23 +210,35 @@ def create_gan_state(
 
 
 def decode_u8_batch(batch: Batch) -> Dict[str, Any]:
-    """uint8 -> [-1, 1] as (2v - 255) / 255 in f32 (endpoint-exact: 0 ->
-    -1, 255 -> 1); other leaves pass through unchanged."""
+    """uint8 -> [-1, 1] as (2v - 255) / 255 in f32, correctly rounded on
+    every device (endpoint-exact: 0 -> -1, 255 -> 1); other leaves pass
+    through unchanged."""
 
     def dec(x):
         if isinstance(x, np.ndarray) and x.dtype == np.uint8:
             x = torch.from_numpy(x)
         if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
-            return (2.0 * x.float() - 255.0) / 255.0
+            # the divisor is a tensor on x's device: CUDA divides by a CPU
+            # scalar as a product with its reciprocal, which is one ulp
+            # off (2v - 255) / 255 for some v
+            return (2.0 * x.float() - 255.0) / torch.full((), 255.0, device=x.device)
         return x
 
     return {k: dec(v) for k, v in batch.items()}
 
 
+def _to_device(x: ArrayLike, device: torch.device) -> torch.Tensor:
+    """The host-to-device copy of one batch leaf."""
+    return torch.as_tensor(x, device=device)
+
+
 def _to_device_nchw(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Each leaf to ``device`` as it is, then uint8 decoded there: a uint8
+    batch crosses to the card as uint8, a quarter of its f32 bytes, as
+    the JAX step decodes inside the jitted step."""
+    moved = {k: _to_device(v, device) for k, v in batch.items()}
     out = {}
-    for k, v in decode_u8_batch(batch).items():
-        t = torch.as_tensor(v, device=device)
+    for k, t in decode_u8_batch(moved).items():
         out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
     return out
 

@@ -1,46 +1,24 @@
 """Sample grids during GAN training — the port of
 ``tpgan_tpu/train/sampling.py``: rows of profile input, synthesized
-frontal face and ground-truth frontal face, written as PNGs. The PNG
-encoder is the standard library's ``zlib`` and ``struct`` (8-bit RGB, no
-filter), so no imaging package is needed on the card's machine."""
+frontal face and ground-truth frontal face, written as PNGs by
+``data/imageio.py`` (no imaging package)."""
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from tpgan_tpu_torch.config import Config
+from tpgan_tpu_torch.data.imageio import write_png
 from tpgan_tpu_torch.models.generator import Generator
 from tpgan_tpu_torch.train.gan_trainer import make_synthesize_fn
 
 
 def _to_u8(x: np.ndarray) -> np.ndarray:
     return ((np.clip(x, -1.0, 1.0) + 1.0) * 127.5).astype(np.uint8)
-
-
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w, c = rgb.shape
-    if c != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got {rgb.shape}")
-    # each scanline starts with filter type 0 (none)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_png_chunk(b"IEND", b""))
 
 
 def save_image_grid(rows: Sequence, path: str, pad: int = 2) -> None:

@@ -26,8 +26,12 @@ def capture(
     libraries, K2's scratch, Adam's moments, the ``.grad`` buffers, the
     cuBLAS and cuDNN workspaces) exists before the capture; then
     ``reset()``, which undoes what the warm-up calls changed; then one
-    capture of ``fn()`` in the default global mode, with each of
-    ``generators`` registered so its draws advance at every replay. ``out``
+    capture of ``fn()`` in thread-local mode, with each of ``generators``
+    registered so its draws advance at every replay. Thread-local: the
+    capturing thread may make no call that could sync or allocate on the
+    card, but other threads may, as the pin-memory thread of a data
+    loader feeding the train loop does (``cudaHostAlloc``) while the
+    loop's first dispatch captures the step; global mode forbids that. ``out``
     holds the graph's output tensors, rewritten by each ``graph.replay()``;
     ``launches`` the kernel launches of one replay as the wrappers recorded
     them at the capture, which the launch counts leave out
@@ -46,6 +50,7 @@ def capture(
     graph = torch.cuda.CUDAGraph()
     for generator in generators:
         graph.register_generator_state(generator)
-    with kernels.captured_launches() as launches, torch.cuda.graph(graph):
+    with kernels.captured_launches() as launches, \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn()
     return graph, out, launches
