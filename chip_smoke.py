@@ -123,9 +123,37 @@ Phases, each of which exits non-zero on failure:
                  images/s (phase 11), and the loop rates beside phase 10's.
                  Its launches are printed on their own line, not counted
                  in the ``kernels`` line.
+15. identity and eval — the identity embedder and the evaluation: (a) the
+                 full-width ResNet18 (f32 and bf16) and MobileNetV2Classifier
+                 (f32) forwards on the card against the same seeded weights'
+                 f32 forward on the CPU (f32 within 1e-4 of each output's
+                 largest magnitude, TF32 off, deterministic cuDNN; bf16
+                 within 5%), and the embedder's forward images/s in f32 and
+                 bf16; (b) ``run_feature_extract_training`` on the procedural
+                 protocol, 16 subjects x 9 cameras, 4 whole subjects held
+                 out, batch 64, 30 augmented SGD steps, one validation and a
+                 checkpoint: metrics finite, parameters moved, the checkpoint
+                 reloads bit for bit; (c) the full-size bf16 GAN step with
+                 that checkpoint frozen as the identity embedder, eager and
+                 as K=4 graph replays, at batch 16 and 64: the identity term
+                 > 0 and finite, 7 / 2 / 1 / 1 launches per step, the
+                 embedder's weights, gradients and BatchNorm statistics
+                 untouched; images/s and peak memory beside phases 8 and 11,
+                 and the embedder's share of a batch-16 step's device busy
+                 time (profiles of the step with and without the term); (d)
+                 phase 7's f32 kernels-against-plain check and phase 11's
+                 replays-against-eager check with the term on; (e)
+                 ``evaluate_protocol`` on the rendered protocol with 2 noise
+                 draws, G from the step's checkpoint, through the graphed and
+                 the eager synthesis: PSNR finite, SSIM, Rank-1 and identity
+                 similarity in range, every camera scored, graphed equal to
+                 eager; images/s over three whole passes after the checked
+                 one, the first call (the graph's capture) timed apart. Its
+                 launches go on their own line.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
-and phase 14's two loops) is driven and read just after; launches made to compare a kernel with its
+phase 14's two loops, and phase 15's steps and protocol runs) is driven
+and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
 launches are the wrappers' own, and the profiler traces of phases 11 and 13
@@ -227,6 +255,19 @@ DATA_WORKERS = 2
 LOADER_WORKERS = 4
 LOADER_BATCHES = 16
 HTOD_TRACES = 2
+# phase 15: the identity embedder and the evaluation. 16 subjects x 9
+# cameras, 4 held out whole (their frontal image the gallery)
+IDENTITY_SUBJECTS = 16
+IDENTITY_HELD_OUT = 4
+EMBEDDER_BATCH = 64
+EMBEDDER_STEPS = 30
+EMBEDDER_CHECK_BATCH = 8
+EMBEDDER_F32_TOL = 1e-4  # of each output's largest magnitude, TF32 off
+IDENTITY_STEPS = ((TRAIN_BATCH, 10), (64, 5))  # (batch, timed eager steps)
+EVAL_BATCH = 16
+EVAL_Z = 2
+EVAL_TIMED_PASSES = 3  # protocol passes timed after the checked one, for (e)'s images/s
+PROFILE_CAMERAS = {"110", "120", "090", "080", "130", "140", "010", "200"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -650,10 +691,11 @@ def grad_gap(a, b):
     return ndiff, worst
 
 
-def run_train_f32(dev):
+def run_train_f32(dev, identity_embed=None):
     """Phase 7: after a warm-up step, one f32 step through the kernels and
     one through the plain versions, from the same seeded state, batch and
-    noise; their gradients are held leaf by leaf."""
+    noise; their gradients are held leaf by leaf. Phase 15 (d) runs it with
+    the identity term on (``identity_embed``)."""
     import numpy as np
     import torch
 
@@ -672,7 +714,7 @@ def run_train_f32(dev):
     runs = []
     for plain in (False, False, True):  # warm-up, kernels, plain
         state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
-        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed)
         kernels.reset_launch_counts()
         forced = mock.patch.object(kernels, "_dispatch", lambda x, name: False)
         with forced if plain else contextlib.nullcontext():
@@ -682,6 +724,8 @@ def run_train_f32(dev):
         if plain != (sum(counts.values()) == 0):
             raise AssertionError(f"f32 step ({'plain' if plain else 'kernels'}) launches {counts}")
         train_metrics_ok(metrics)
+        if (identity_embed is not None) != (float(metrics["g_identity_preserving"]) > 0):
+            raise AssertionError(f"f32 step: identity term {float(metrics['g_identity_preserving'])}")
         named = [*gen.named_parameters(), *(("D." + n, p) for n, p in disc.named_parameters())]
         runs.append(({k: float(v) for k, v in metrics.items()},
                      {n: p.grad.detach().clone() for n, p in named},
@@ -705,7 +749,8 @@ def run_train_f32(dev):
     ndiff = sum(int((pk[n] != pp[n]).sum()) for n in pk)
     total = sum(p.numel() for p in pk.values())
     msum = max(abs(mk[k] - mp[k]) for k in mp)
-    log(f"train f32 check: batch {TRAIN_F32_BATCH}, kernels vs plain versions: metrics max|diff| "
+    what = "identity: train f32 check with the identity term" if identity_embed else "train f32 check"
+    log(f"{what}: batch {TRAIN_F32_BATCH}, kernels vs plain versions: metrics max|diff| "
         f"{msum:.3e} (worst {worst:.3f} of 1e-5|ref|+1e-6); gradients of {len(gp)} leaves: "
         f"{gdiff} of {total} elements differ, worst leaf max|diff| {worst_grad:.3e} of its "
         f"max|grad| (bound {TRAIN_F32_GRAD_ULPS} ulp of it); updated params: {ndiff} differ; "
@@ -967,10 +1012,11 @@ def run_loop(dev, tag, eager_rate):
     return total, rates
 
 
-def run_multi_step_f32(dev):
+def run_multi_step_f32(dev, identity_embed=None):
     """Phase 11: K=3 graph replays of the f32 step against 3 eager steps
     from the same seeded state, batches and generator seed, the eager
-    step's optimizers made capturable as the capture makes the graph's."""
+    step's optimizers made capturable as the capture makes the graph's.
+    Phase 15 (d) runs it with the identity term on (``identity_embed``)."""
     import numpy as np
     import torch
 
@@ -989,13 +1035,13 @@ def run_multi_step_f32(dev):
     # a process's first f32 step differs in the last bits from later ones
     # (phase 7's reason, ROADMAP C2): one step first, thrown away
     warm = create_gan_state(cfg, seed=0, device=dev)
-    make_gan_train_step(cfg, *warm[1:])(warm[0], batches[0],
-                                        torch.Generator(device=dev).manual_seed(1))
+    make_gan_train_step(cfg, *warm[1:], identity_embed)(
+        warm[0], batches[0], torch.Generator(device=dev).manual_seed(1))
     del warm
     runs = []
     for graphed in (False, True):
         state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
-        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed)
         generator = torch.Generator(device=dev).manual_seed(9)
         if graphed:
             multi = make_multi_step(step, MULTI_K)
@@ -1034,7 +1080,10 @@ def run_multi_step_f32(dev):
     mdiff = sum(int((m_g[k] != m_e[k]).sum()) for k in m_e)
     if s_e != s_g or s_g != MULTI_K:
         raise AssertionError(f"multi-step f32: steps {s_e} / {s_g}")
-    log(f"multi-step f32: batch {TRAIN_F32_BATCH}, {MULTI_K} graph replays against {MULTI_K} "
+    if (identity_embed is not None) != bool((m_g["g_identity_preserving"] > 0).all()):
+        raise AssertionError(f"multi-step f32: identity term {m_g['g_identity_preserving']}")
+    what = "identity: multi-step f32 with the identity term" if identity_embed else "multi-step f32"
+    log(f"{what}: batch {TRAIN_F32_BATCH}, {MULTI_K} graph replays against {MULTI_K} "
         f"eager steps (TF32 off, deterministic cuDNN, same seeds, capturable Adam on both "
         f"sides): {ndiff} of {total} elements "
         f"of the parameters, EMA and Adam moments differ (worst leaf {worst:.3e} of its max), "
@@ -1652,6 +1701,379 @@ def run_data(dev, tag, graphed_rates, loop_rates):
     log(f"data: phase 14 took {time.perf_counter() - start:.1f} s")
 
 
+class _Collect:
+    """A metric writer that keeps what it is given."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, step, metrics):
+        self.lines.append((step, {k: float(v) for k, v in metrics.items()}))
+
+
+def check_embedders(dev, tag):
+    """Phase 15 (a): each embedder's forward on the card against the same
+    seeded weights' f32 forward on the CPU; the forward's images/s at
+    batch ``EMBEDDER_BATCH`` in f32 and bf16."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.models.feature_extract import build_feature_extract_model, cast_embedder
+
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (EMBEDDER_CHECK_BATCH, 3, 128, 128)).astype(np.float32))
+    lines = []
+    for base in ("resnet", "mobilenetv2"):
+        cfg = make_config({"feature_extract_model": {"base_model_name": base}})
+        model = build_feature_extract_model(cfg, dev, seed=0).eval()
+        cpu = build_feature_extract_model(cfg, "cpu", seed=0).eval()
+        cpu.load_state_dict(model.state_dict())
+        forms = [("f32", model)]
+        if base == "resnet":
+            forms.append(("bf16", cast_embedder(copy.deepcopy(model), torch.bfloat16)))
+        with torch.no_grad():
+            want = [t.float() for t in cpu(x)]
+            _f32_exact(True)
+            got = {name: [t.float().cpu() for t in m(x.to(dev))] for name, m in forms}
+            _f32_exact(False)
+        for name, outs in got.items():
+            errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(outs, want)]
+            bound = EMBEDDER_F32_TOL if name == "f32" else BF16_REL_DIFF
+            if not max(errs) <= bound or not all(torch.isfinite(g).all() for g in outs):
+                raise AssertionError(f"embedder {base} {name} on the card vs f32 on the CPU: "
+                                     f"(logits, features) max|diff| {errs} of max, bound {bound}")
+            line = (f"{base} {name} (logits, features {tuple(outs[1].shape)}) max|card - cpu| "
+                    f"{errs[0]:.2e}, {errs[1]:.2e} of max (bound {bound})")
+            if base == "resnet":
+                m = dict(forms)[name]
+                xb = torch.randn(EMBEDDER_BATCH, 3, 128, 128, device=dev).to(
+                    torch.bfloat16 if name == "bf16" else torch.float32)
+                with torch.no_grad():
+                    for _ in range(3):
+                        m(xb)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        m(xb)
+                    torch.cuda.synchronize()
+                line += (f", forward {EMBEDDER_BATCH * 10 / (time.perf_counter() - t0):.1f} "
+                         f"images/s at batch {EMBEDDER_BATCH}")
+            lines.append(line)
+        del model, cpu, forms
+    log(f"identity (a): {'; '.join(lines)} (f32 timed with cuDNN's default TF32) {tag}")
+
+
+def train_embedder(dev, tag, root):
+    """Phase 15 (b): ``run_feature_extract_training`` on the rendered
+    protocol with whole subjects held out. Returns (checkpoint directory,
+    the GAN training list)."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.multipie import IdentityImageDataset, frontal_twin_path
+    from tpgan_tpu_torch.data.synthetic_faces import generate_gan_protocol
+    from tpgan_tpu_torch.models.feature_extract import build_feature_extract_model
+    from tpgan_tpu_torch.train.checkpoint import restore_model_variables
+    from tpgan_tpu_torch.train.feature_extract import (
+        held_out_subject_split,
+        load_val_data,
+        run_feature_extract_training,
+    )
+
+    t0 = time.perf_counter()
+    img_list = generate_gan_protocol(os.path.join(root, "mp"), IDENTITY_SUBJECTS)
+    every_view = img_list + sorted({frontal_twin_path(p) for p in img_list})
+    train, split = held_out_subject_split(every_view, IDENTITY_HELD_OUT)
+    val = load_val_data(split)
+    ds = IdentityImageDataset(train)
+    items = [ds[i] for i in range(len(ds))]
+    images = np.stack([im for im, _ in items])
+    labels = np.stack([lbl for _, lbl in items])
+    t_data = time.perf_counter() - t0
+
+    def batches():
+        rng = np.random.RandomState(0)
+        while True:
+            idx = rng.choice(len(images), EMBEDDER_BATCH, replace=False)
+            yield images[idx], labels[idx]
+
+    cfg = make_config()
+    writer, ck = _Collect(), os.path.join(root, "embedder")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run_feature_extract_training(cfg, batches(), steps=EMBEDDER_STEPS, writer=writer,
+                                         checkpoint_dir=ck, val_data=val, val_every=10**9,
+                                         device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(s, m) for s, m in writer.lines if not all(np.isfinite(v) for v in m.values())]
+    fresh = build_feature_extract_model(cfg, dev, seed=0)
+    moved = sum(not torch.equal(a, b) for a, b in zip(fresh.parameters(), state.model.parameters()))
+    restore_model_variables(ck, fresh)
+    reloaded = all(torch.equal(v, state.model.state_dict()[k]) for k, v in fresh.state_dict().items())
+    if bad or not moved or not reloaded or state.step != EMBEDDER_STEPS:
+        raise AssertionError(f"embedder training: non-finite {bad}; {moved} parameters moved; "
+                             f"checkpoint reloads equal: {reloaded}; step {state.step}")
+    curve = [(s, round(m["loss"], 4), m["accuracy"]) for s, m in writer.lines if "loss" in m]
+    val_metrics = writer.lines[-1][1]
+    log(f"identity (b): {IDENTITY_SUBJECTS} subjects x 9 cameras rendered in {t_data:.1f} s; "
+        f"{len(train)} training images of {IDENTITY_SUBJECTS - IDENTITY_HELD_OUT} subjects, "
+        f"{IDENTITY_HELD_OUT} held out ({len(split['probe_paths'])} probes, "
+        f"{len(split['gallery_paths'])} gallery); run_feature_extract_training full-width "
+        f"ResNet18, {cfg.pretrain.optimizer} lr {cfg.optimizer_param.learning_rate}, batch "
+        f"{EMBEDDER_BATCH}, {EMBEDDER_STEPS} augmented steps in {wall:.2f} s; (step, loss, "
+        f"accuracy) {curve}; val_rank1 {val_metrics['val_rank1']:.4f}, val_identity_sim "
+        f"{val_metrics['val_identity_sim']:.4f}; {moved} parameter tensors moved; the "
+        f"checkpoint reloads bit for bit {tag}")
+    return ck, img_list
+
+
+def identity_steps(dev, tag, embed, embedder, train_rates, graphed_rates, gan_ck):
+    """Phase 15 (c): the full-size bf16 step with the identity term, eager
+    and as graph replays at batch 16 and 64; the embedder's share of the
+    batch-16 step's device busy time; the batch-16 eager state saved to
+    ``gan_ck``. Returns the wrapper launches of the eager steps."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.checkpoint import save_checkpoint
+    from tpgan_tpu_torch.train.gan_trainer import (
+        create_gan_state,
+        make_gan_train_step,
+        make_multi_step,
+    )
+
+    before = {k: v.clone() for k, v in embedder.state_dict().items()}
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    launches = collections.Counter()
+    lines = []
+    for batch, steps in IDENTITY_STEPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed=embed)
+        b = synthetic_gan_batch(batch, seed=0, num_classes=cfg.G.num_classes)
+        generator = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(3):
+            state, _m = step(state, b, generator)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = []
+        for _ in range(steps):
+            state, metrics = step(state, b, generator)
+            history.append(metrics)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        counts = kernels.launch_counts()
+        launches.update(counts)
+        for m in history:
+            train_metrics_ok(m)
+            if not float(m["g_identity_preserving"]) > 0:
+                raise AssertionError(f"identity step: the term is {float(m['g_identity_preserving'])}")
+        if counts != {k: v * steps for k, v in PER_STEP.items()}:
+            raise AssertionError(f"identity step batch {batch}: launches {counts} over {steps} steps")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line = (f"eager batch {batch}: {dt * 1e3:.2f} ms/step = {batch / dt:.1f} images/s, peak "
+                f"{peak:.2f} GiB (phase 8 without the term: {train_rates[batch][0]:.1f} images/s, "
+                f"{train_rates[batch][1]:.2f} GiB), g_identity_preserving "
+                f"{float(history[-1]['g_identity_preserving']):.4f}")
+        if batch == TRAIN_BATCH:
+            plain = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+            box = [state]
+
+            def with_term():
+                box[0], _ = step(box[0], b, generator)
+
+            def without():
+                box[0], _ = plain(box[0], b, generator)
+
+            without()  # its first use
+            busy = {}
+            for name, fn in (("with", with_term), ("without", without)):
+                stats = profile(fn, 2, f"eager train step bf16 batch {batch}, {name} the identity "
+                                "term", "step", tag, {})
+                busy[name] = None if stats is None else stats["busy_ms"]
+            if None in busy.values():
+                line += "; the embedder's share of busy time not measured (no device time traced)"
+            else:
+                share = (busy["with"] - busy["without"]) / busy["with"]
+                line += (f"; device busy {busy['with']:.2f} ms/step with the term, "
+                         f"{busy['without']:.2f} without: the embedder's share {share:.1%}")
+            save_checkpoint(gan_ck, box[0].step, box[0])
+            del box, plain
+        lines.append(line)
+        del state, gen, disc, g_opt, d_opt, step, history, metrics, _m
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        multi = make_multi_step(make_gan_train_step(cfg, gen, disc, g_opt, d_opt, embed), LOOP_K)
+        super_batch = {k: np.stack([v] * LOOP_K) for k, v in b.items()}
+        state, metrics = multi(state, super_batch, generator)  # the capture
+        if multi.launches() != PER_STEP:
+            raise AssertionError(f"graphed identity step: per replay {multi.launches()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, metrics = multi(state, super_batch, generator)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (2 * LOOP_K)
+        if not all(torch.isfinite(v.float()).all() for v in metrics.values()) or \
+                not bool((metrics["g_identity_preserving"] > 0).all()):
+            raise AssertionError(f"graphed identity step batch {batch}: metrics {metrics}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines.append(f"graphed batch {batch}: {dt * 1e3:.2f} ms/step = {batch / dt:.1f} images/s "
+                     f"({LOOP_K} replays per dispatch; phase 11 without the term: "
+                     f"{graphed_rates[batch]:.1f}), peak {peak:.2f} GiB, the capture's record "
+                     f"{multi.launches()} per replay")
+        del state, gen, disc, g_opt, d_opt, multi, metrics
+    grads = [n for n, p in embedder.named_parameters() if p.grad is not None or p.requires_grad]
+    moved = [k for k, v in embedder.state_dict().items() if not torch.equal(v, before[k])]
+    if grads or moved:
+        raise AssertionError(f"the frozen embedder took gradients {grads[:4]} or moved {moved[:4]}")
+    log(f"identity (c): full-size bf16 step with the identity term through the trained f32 "
+        f"ResNet18: {'; '.join(lines)}; no embedder parameter has a .grad or moved, no "
+        f"BatchNorm statistic moved {tag}")
+    return launches
+
+
+def eval_protocol(dev, tag, gan_ck, embed, img_list):
+    """Phase 15 (e): ``evaluate_protocol`` on the rendered protocol with G
+    from the step's checkpoint, graphed and eager. Returns the wrapper
+    launches of both runs."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.multipie import TrainDataset
+    from tpgan_tpu_torch.data.pipeline import batch_iterator
+    from tpgan_tpu_torch.evaluate import evaluate_protocol
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.checkpoint import restore_gan_checkpoint
+    from tpgan_tpu_torch.train.gan_trainer import (
+        GRAPH_WARMUP_CALLS,
+        create_gan_state,
+        eval_g_params,
+        make_graphed_synthesize_fn,
+        make_synthesize_fn,
+    )
+
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    state = restore_gan_checkpoint(gan_ck, create_gan_state(cfg, seed=1, device=dev)[0])
+    weights = eval_g_params(state)  # the EMA weights, as cmd_eval's "auto"
+    with torch.no_grad():
+        for n, p in state.gen.named_parameters():
+            p.copy_(weights[n])
+    batches = list(batch_iterator(TrainDataset(img_list), EVAL_BATCH, shuffle=False, epochs=1,
+                                  drop_last=False, num_workers=0))
+    results, launches, lines = {}, collections.Counter(), []
+    n_items = len(img_list) * EVAL_Z
+
+    def one_pass(synthesize):
+        return evaluate_protocol(
+            synthesize, batches, img_list, cfg.G.zdim, embed=embed, z_samples=EVAL_Z,
+            generator=torch.Generator(device=dev).manual_seed(0))
+
+    for form, make in (("graphed", make_graphed_synthesize_fn), ("eager", make_synthesize_fn)):
+        synthesize = make(cfg, state.gen)
+        kernels.reset_launch_counts()
+        # the first call alone: the graph's warm-up forwards, capture and one replay
+        # (graphed), or one forward (eager), timed apart from the passes below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synthesize(batches[0], torch.zeros((len(batches[0]["img"]), cfg.G.zdim), device=dev))
+        torch.cuda.synchronize()
+        first_call = time.perf_counter() - t0
+        results[form] = one_pass(synthesize)
+        counts = kernels.launch_counts()
+        launches.update(counts)
+        forwards = len(batches) * EVAL_Z + 1
+        # eager: 3 fuses per forward; graphed: the capture's warm-up forwards only
+        want = 3 * (forwards if form == "eager" else GRAPH_WARMUP_CALLS)
+        if counts["fuse_parts"] != want or sum(counts.values()) != want:
+            raise AssertionError(f"protocol {form}: launches {counts}, expected {want} fuses")
+        # the rate: whole passes after the checked one, each timed on its own
+        walls = []
+        for _ in range(EVAL_TIMED_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = one_pass(synthesize)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if again != results[form]:
+                raise AssertionError(f"protocol {form}: a repeated pass differs: {again}")
+        rates = sorted(n_items / w for w in walls)
+        lines.append(
+            f"{form} {rates[0]:.1f}-{rates[-1]:.1f} images/s over {EVAL_TIMED_PASSES} passes "
+            f"after the first (each {len(img_list)} items x {EVAL_Z} draws, "
+            f"{min(walls):.3f}-{max(walls):.3f} s, embedding and scoring included); first call "
+            f"{first_call:.3f} s ({'warm-up, capture, replay' if form == 'graphed' else 'one forward'}"
+            f"); launches {dict(counts)}")
+        del synthesize
+    # how far the noise moves the first batch's fakes (psnr_z_std reads it)
+    synthesize = make_synthesize_fn(cfg, state.gen)
+    z = torch.randn((2, len(batches[0]["img"]), cfg.G.zdim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    z_moves = float((synthesize(batches[0], z[0]).float()
+                     - synthesize(batches[0], z[1]).float()).abs().max())
+    lines.append(f"max|fake(z1) - fake(z2)| on the first batch {z_moves:.3e}")
+    del synthesize
+    out = results["eager"]
+    cams = set(out.get("per_camera", {}))
+    ok = (np.isfinite(out["psnr"]) and -1 <= out["ssim"] <= 1 and 0 <= out["rank1"] <= 1
+          and -1 <= out["identity_sim"] <= 1 and cams == PROFILE_CAMERAS
+          and out["num_images"] == len(img_list) and out["z_samples"] == EVAL_Z)
+    if not ok or results["graphed"] != out:
+        raise AssertionError(f"protocol: eager {out}; graphed {results['graphed']}")
+    summary = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in out.items()
+               if k != "per_camera"}
+    log(f"identity (e): evaluate_protocol, G from the step's checkpoint (EMA), bf16, batch "
+        f"{EVAL_BATCH}: {summary}; per camera (psnr, ssim, rank1) "
+        f"{ {c: (round(r['psnr'], 2), round(r['ssim'], 3), r['rank1']) for c, r in sorted(out['per_camera'].items())} }; "
+        f"graphed == eager; {'; '.join(lines)} {tag}")
+    return launches
+
+
+def run_identity_eval(dev, tag, train_rates, graphed_rates):
+    """Phase 15: the identity embedder and the evaluation, (a)-(e)."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.models.feature_extract import (
+        build_feature_extract_model,
+        make_identity_embed_fn,
+    )
+    from tpgan_tpu_torch.train.checkpoint import restore_model_variables
+
+    start = time.perf_counter()
+    check_embedders(dev, tag)
+    with tempfile.TemporaryDirectory() as root:
+        ck, img_list = train_embedder(dev, tag, root)
+        embedder = build_feature_extract_model(make_config(), dev, seed=1)
+        restore_model_variables(ck, embedder)
+        embed = make_identity_embed_fn(embedder)
+        gan_ck = os.path.join(root, "gan")
+        step_launches = identity_steps(dev, tag, embed, embedder, train_rates, graphed_rates,
+                                       gan_ck)
+        torch.cuda.empty_cache()
+        run_train_f32(dev, embed)
+        run_multi_step_f32(dev, embed)
+        eval_launches = eval_protocol(dev, tag, gan_ck, embed, img_list)
+    log(f"identity: wrapper launches {dict(step_launches)} in (c)'s timed eager steps (7 / 2 / 1 "
+        f"/ 1 per step) and {dict(eval_launches)} in (e) (3 per eager forward and per graph "
+        f"warm-up forward); phase 15 took {time.perf_counter() - start:.1f} s")
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -1910,6 +2332,11 @@ def main() -> int:
     # ---- 14. data: the loop fed from files, shards and device memory ----
     torch.cuda.empty_cache()
     run_data(dev, tag, graphed_rates, loop_rates)
+
+    # ---- 15. identity and eval: the embedder, its training, the term, the protocol ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_identity_eval(dev, tag, train_rates, graphed_rates)
 
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]

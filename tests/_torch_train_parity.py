@@ -128,8 +128,9 @@ class Pair:
             "drop_mask_d": np.array(masks[0]), "drop_mask_g": np.array(masks[1]),
         }
 
-    def jax_step(self, make_tx):
-        """One jitted JAX step from the initial weights: (old, new, metrics)."""
+    def jax_step(self, make_tx, identity_embed=None):
+        """One jitted JAX step from the initial weights: (old, new, metrics);
+        ``identity_embed``: JAX's embed function for the identity term."""
         g_tx, d_tx = make_tx(), make_tx()
         gp, dp = self.g_params, self.d_params
         state = JGANTrainState(
@@ -138,7 +139,8 @@ class Pair:
             g_batch_stats=self.g_stats or {}, d_batch_stats=self.d_stats or {},
             g_ema_params=jax.tree.map(jnp.copy, gp),
         )
-        step = jax.jit(jax_make_gan_train_step(self.jcfg, self.jgen, self.jdisc, g_tx, d_tx))
+        step = jax.jit(jax_make_gan_train_step(self.jcfg, self.jgen, self.jdisc, g_tx, d_tx,
+                                               identity_embed))
         new, metrics = step(state, self.batch, self.rng)
         return tree_np(state), tree_np(new), {k: float(v) for k, v in metrics.items()}
 
@@ -150,7 +152,7 @@ class Pair:
                              strict=True)
         return gen, disc
 
-    def port_step(self, make_opt):
+    def port_step(self, make_opt, identity_embed=None):
         """One port step from the same weights with the JAX noise:
         (state before as numpy dicts, state after, metrics)."""
         gen, disc = self.port_models()
@@ -158,7 +160,7 @@ class Pair:
         ema = {n: p.detach().clone() for n, p in gen.named_parameters()}
         state = GANTrainState(0, gen, disc, g_opt, d_opt, ema)
         before = snapshot(state)
-        step = make_gan_train_step(self.cfg, gen, disc, g_opt, d_opt)
+        step = make_gan_train_step(self.cfg, gen, disc, g_opt, d_opt, identity_embed)
         state, metrics = step(state, self.batch, torch.Generator().manual_seed(0), self.noise)
         return before, snapshot(state), {k: float(v) for k, v in metrics.items()}
 

@@ -736,3 +736,71 @@ def test_device_sampler_and_crops_on_the_card(cuda, tmp_path):
     for b in range(2):
         for name, want in crop_patches(imgs[b], lms[b]).items():
             assert np.array_equal(got[name][b].cpu().numpy(), want), (b, name)
+
+
+def _small_embedder(device, seed=0):
+    from tpgan_tpu_torch.models.feature_extract import build_feature_extract_model
+
+    return build_feature_extract_model(make_config(), device, seed=seed)
+
+
+def test_embedder_forward_on_the_card_matches_the_cpu(cuda):
+    """The full-width ResNet18 embedder in f32 (TF32 off) on the card
+    against the same weights on the CPU: within 1e-4 of each output's
+    largest magnitude."""
+    _f32_exact()
+    model = _small_embedder(cuda).eval()
+    cpu = _small_embedder("cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (2, 3, 128, 128))
+                         .astype(np.float32))
+    with torch.no_grad():
+        got = [t.cpu() for t in model(x.to(cuda))]
+        want = cpu(x)
+    torch.backends.cudnn.deterministic = False
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_identity_step_graph_replays_equal_eager_steps(cuda):
+    """The f32 step with the identity term on: K=2 replays of the captured
+    step against 2 eager steps (capturable optimizers on both sides),
+    bit for bit, after a warm-up step; the frozen embedder closed over by
+    the graph takes no gradient and does not move."""
+    from tpgan_tpu_torch.models.feature_extract import make_identity_embed_fn
+    from tpgan_tpu_torch.train.gan_trainer import make_multi_step
+    from tpgan_tpu_torch.train.optim import make_capturable
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype="float32"))
+    embedder = _small_embedder(cuda, seed=3)
+    before = {k: v.clone() for k, v in embedder.state_dict().items()}
+    embed = make_identity_embed_fn(embedder)
+    batches = [synthetic_gan_batch(2, seed=s) for s in range(2)]
+    warm, *models = create_gan_state(cfg, 0, cuda)
+    make_gan_train_step(cfg, *models, embed)(warm, batches[0],
+                                             torch.Generator(device=cuda).manual_seed(1))
+    runs = []
+    for graphed in (False, True):
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, cuda)
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, embed)
+        generator = torch.Generator(device=cuda).manual_seed(5)
+        if graphed:
+            multi = make_multi_step(step, 2)
+            state, metrics = multi(state, {k: np.stack([b[k] for b in batches])
+                                           for k in batches[0]}, generator)
+            assert multi.launches()["fuse_parts"] == 7
+        else:
+            make_capturable(g_opt)
+            make_capturable(d_opt)
+            history = [step(state, b, generator)[1] for b in batches]
+            metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
+        torch.cuda.synchronize()
+        assert bool((metrics["g_identity_preserving"] > 0).all())
+        runs.append((metrics, [t.clone() for t in _written(state)]))
+    torch.backends.cudnn.deterministic = False
+    (m_eager, t_eager), (m_graph, t_graph) = runs
+    assert all(torch.equal(m_graph[k], m_eager[k]) for k in m_eager)
+    assert all(torch.equal(a, b) for a, b in zip(t_eager, t_graph))
+    assert all(p.grad is None for p in embedder.parameters())
+    assert all(torch.equal(v, before[k]) for k, v in embedder.state_dict().items())

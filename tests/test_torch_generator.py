@@ -174,7 +174,7 @@ def test_injected_mask_reproduces_jax_dropout_exactly(dtype):
     keep = 0.7 taken in x's dtype, bit for bit."""
     import flax.linen as fnn
 
-    from tpgan_tpu_torch.models.generator import apply_dropout
+    from tpgan_tpu_torch.ops.blocks import apply_dropout
 
     x = np.random.RandomState(9).standard_normal((4, 256)).astype(np.float32)
     jx = jnp.asarray(x, dtype=dtype)

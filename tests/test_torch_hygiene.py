@@ -15,6 +15,10 @@ import torch
 from tpgan_tpu_torch.config import make_config
 from tpgan_tpu_torch.entry import entry, train_entry
 from tpgan_tpu_torch.examples import conv_ab
+from tpgan_tpu_torch.train.feature_extract import (
+    create_feature_extract_state,
+    run_feature_extract_training,
+)
 from tpgan_tpu_torch.train.gan_trainer import build_generator, create_gan_state
 
 torch.set_num_threads(1)
@@ -75,6 +79,12 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         train_entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         conv_ab.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_entry(identity=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_feature_extract_state(make_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_feature_extract_training(make_config(), iter(()), steps=1)
 
 
 def test_padded_channel_layout_is_refused():

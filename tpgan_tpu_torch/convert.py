@@ -1,5 +1,6 @@
 """Carry weights, and whole train states, from the JAX package to the
-port.
+port: the generator, the critic, a whole GAN train state, and the
+identity embedder (:func:`jax_embedder_variables_to_state_dict`).
 
 The inverse of ``tpgan_tpu/train/checkpoint.py``'s torch-to-Flax import
 (``conv_weight``, ``deconv_weight``, ``_bn`` and the fc1 flatten
@@ -63,9 +64,11 @@ def _walk(tree: Mapping[str, Any], path: tuple, out: Dict[str, np.ndarray]) -> N
 
 
 def _bn_paths(tree: Mapping[str, Any], path: tuple = ()):
+    """Every BatchNorm node, whatever its name (``bn``, ``stem_bn``,
+    ``expand_bn``, ...): the nodes that hold a ``scale``."""
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            if key == "bn":
+            if "scale" in value:
                 yield path + (key,), value
             else:
                 yield from _bn_paths(value, path + (key,))
@@ -88,7 +91,8 @@ def jax_generator_params_to_state_dict(
       -> (in, out, kh, kw) with no flip; linear (in, out) -> (out, in);
     * ``global_pathway.fc1``: columns permuted from the NHWC flatten to
       the NCHW flatten;
-    * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, running stats
+    * every BatchNorm (any node holding a ``scale``, so the critic's and
+      the embedders' trees too): ``scale``/``bias`` -> ``weight``/``bias``, running stats
       ``mean``/``var`` -> ``running_mean``/``running_var`` (the JAX init
       values, zeros and ones, when no ``batch_stats`` are given);
     * ``deconv`` and ``resize_conv`` trees alike (their ``deconv``/``conv``
@@ -119,6 +123,32 @@ def jax_critic_params_to_state_dict(
     ``res3``, ``res4``, ``head``): it has no ``fc1`` and no ``deconv``, so
     only the conv and BatchNorm rules apply. Load with ``strict=True``."""
     return jax_generator_params_to_state_dict(params_np, batch_stats_np)
+
+
+def jax_embedder_variables_to_state_dict(
+    variables: Mapping[str, Any], base_model_name: str
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``FeatureExtractModel``'s numpy variables (``{"params",
+    "batch_stats"}``, e.g. ``jax.device_get`` of ``fx.init``'s output or
+    of a restored embedder checkpoint) onto the port model's
+    ``state_dict``, to be loaded with ``strict=True``, for either backbone
+    (``base_model_name`` ``resnet`` or ``mobilenetv2``):
+
+    * conv kernels HWIO -> OIHW; a depthwise kernel (kh, kw, 1, C) becomes
+      (C, 1, kh, kw) by the same transpose;
+    * Dense kernels (in, out) -> (out, in);
+    * every BatchNorm (``bn``, ``stem_bn``, ``expand_bn``, ...):
+      ``scale`` / ``bias`` -> ``weight`` / ``bias``, ``mean`` / ``var`` ->
+      ``running_mean`` / ``running_var``.
+    """
+    stem = {"resnet": "conv1", "mobilenetv2": "stem"}.get(base_model_name.lower())
+    if stem is None:
+        raise ValueError(f"unknown embedder backbone {base_model_name!r}: expected 'resnet' "
+                         "or 'mobilenetv2'")
+    params = variables["params"]
+    if set(params) != {"base"} or stem not in params["base"]:
+        raise ValueError(f"not a {base_model_name} FeatureExtractModel tree (no base.{stem})")
+    return jax_generator_params_to_state_dict(params, variables.get("batch_stats"))
 
 
 def _unflatten(arrays: Mapping[str, Any]) -> Dict[str, Any]:

@@ -5,7 +5,9 @@ weights, seeded synthetic batches):
   full-size (fm=1.0) generator synthesis forward at batch 8 in bfloat16;
 * :func:`train_entry` — the full-size fused WGAN-GP train step at batch
   16 in bfloat16 (f32 master weights), through ``create_gan_state`` +
-  ``make_gan_train_step`` as ``tpgan_tpu/train/loop.py`` builds it."""
+  ``make_gan_train_step`` as ``tpgan_tpu/train/loop.py`` builds it,
+  optionally with the identity-preserving term through a seeded ResNet18
+  embedder."""
 
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ import torch
 
 from tpgan_tpu_torch.config import make_config
 from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+from tpgan_tpu_torch.models.feature_extract import (
+    build_feature_extract_model,
+    make_identity_embed_fn,
+)
 from tpgan_tpu_torch.train.gan_trainer import (
     build_generator,
     create_gan_state,
@@ -49,16 +55,22 @@ def entry(device: Optional[Union[str, torch.device]] = None):
     return synthesize, (batch, z)
 
 
-def train_entry(device: Optional[Union[str, torch.device]] = None, batch_size: int = TRAIN_BATCH):
+def train_entry(device: Optional[Union[str, torch.device]] = None, batch_size: int = TRAIN_BATCH,
+                identity: bool = False):
     """Returns ``(step_fn, (state, batch, generator))``: each
     ``step_fn(state, batch, generator)`` takes one optimizer step of both
     models and returns ``(state, metrics)``. Full size, bf16 compute,
     seed 0, on ``cuda`` unless ``device`` says otherwise (raises when no
-    GPU is present and none was asked for)."""
+    GPU is present and none was asked for). ``identity``: the G loss's
+    identity-preserving term on, through a frozen f32 ResNet18 embedder
+    of the configured width (128x128 input, 347 classes, fc0 256) with
+    weights from seed 0."""
     device = resolve_device(device)
     cfg = make_config({"compute_dtype": "bfloat16"})
     state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=device)
-    step_fn = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+    embed = (make_identity_embed_fn(build_feature_extract_model(cfg, device, seed=0))
+             if identity else None)
+    step_fn = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed=embed)
     batch = {
         k: torch.as_tensor(v, device=device)
         for k, v in synthetic_gan_batch(batch_size, seed=0, num_classes=cfg.G.num_classes).items()

@@ -1,2 +1,3 @@
 """The generator's modules (LocalPathway, the LocalFuser, GlobalPathway,
-Generator) and the PatchGAN critic (Discriminator)."""
+Generator), the PatchGAN critic (Discriminator) and the identity
+embedders (ResNet18, MobileNetV2Classifier, FeatureExtractModel)."""

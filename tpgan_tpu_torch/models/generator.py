@@ -6,7 +6,7 @@ max-fuser, the GlobalPathway, and the identity classification head
 All three fuses go through the kernel wrapper ``ops.kernels.fuse_parts``:
 the hand-written CUDA kernel on the card, its plain version on the CPU.
 
-Dropout (``FeaturePredict``, rate 0.3) draws its mask from an explicit
+Dropout (``FeaturePredict``, rate 0.3; ``ops.blocks.dropout``) draws its mask from an explicit
 ``torch.Generator`` or takes a precomputed keep-mask; with
 ``use_dropout=True`` and neither, it raises. BatchNorm (when configured)
 follows the module's train/eval mode.
@@ -22,7 +22,7 @@ import torch.nn as nn
 from tpgan_tpu_torch.models.global_pathway import GlobalPathway
 from tpgan_tpu_torch.models.local_pathway import LocalPathway
 from tpgan_tpu_torch.ops import initializers as init_lib
-from tpgan_tpu_torch.ops.blocks import LinearBlock
+from tpgan_tpu_torch.ops.blocks import LinearBlock, dropout
 from tpgan_tpu_torch.ops.kernels import fuse_parts
 
 
@@ -51,34 +51,7 @@ class FeaturePredict(nn.Module):
         generator: Optional[torch.Generator] = None,
         keep_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if use_dropout:
-            if keep_mask is None:
-                if generator is None:
-                    raise ValueError(
-                        "use_dropout=True needs a torch.Generator or a keep_mask; "
-                        "the port draws no randomness from torch's global RNG"
-                    )
-                keep_mask = dropout_keep_mask(x.shape, self.dropout, generator, x.device)
-            x = apply_dropout(x, keep_mask, self.dropout)
-        return self.fc(x)
-
-
-def dropout_keep_mask(
-    shape, rate: float, generator: torch.Generator, device=None
-) -> torch.Tensor:
-    """Boolean keep-mask, each element kept with probability 1 - rate."""
-    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
-
-
-def apply_dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
-    """JAX's ``nn.Dropout``: ``where(mask, x / keep, 0)``. The JAX divisor
-    is the Python float ``keep`` taken in ``x``'s dtype, so it is rounded
-    to that dtype here too (0.69921875 in bfloat16)."""
-    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
-    if keep_mask.shape != x.shape:
-        raise ValueError(f"keep_mask {tuple(keep_mask.shape)} != input {tuple(x.shape)}")
-    return torch.where(keep_mask.to(device=x.device, dtype=torch.bool), x / keep,
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+        return self.fc(dropout(x, self.dropout, use_dropout, generator, keep_mask))
 
 
 class GeneratorOutput(NamedTuple):

@@ -47,8 +47,11 @@ Left out of this port, on purpose:
   shapes, so ``build_generator`` rejects ``G.pad_channel_multiple``.
 * The int8 post-training-quantization hooks (``ops/quant.py``) — a later
   slice of the port.
-* ``groups`` > 1, ``bias_init`` and ``pre_activation``: no generator
-  layer uses them (the detector slice brings the first two).
+* ``bias_init`` and ``pre_activation``: no layer of the port uses them
+  (the detector's SSD head brings the first). ``Conv2d(groups=...)`` is
+  here (the embedders' depthwise convs, ``groups == in_channels``) and,
+  as JAX hands its grouped convs to XLA, goes to cuDNN through
+  ``F.conv2d(groups=...)``; its fan-in is ``in_channels / groups``.
 * The subpixel phase decomposition: ``"subpixel"`` maps onto the same
   ``conv_transpose2d`` as ``"deconv"`` (same math, same parameters).
 """
@@ -105,7 +108,8 @@ def _cast(layer: nn.Module, x: torch.Tensor):
 
 
 class Conv2d(nn.Module):
-    """Conv with torch-default init and reference padding forms; OIHW."""
+    """Conv with torch-default init and reference padding forms; OIHW,
+    (out, in / groups, kh, kw) when grouped."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -118,20 +122,25 @@ class Conv2d(nn.Module):
         padding: Padding = 0,
         use_bias: bool = True,
         kernel_init=None,
+        groups: int = 1,
         device=None,
     ):
         super().__init__()
         kh, kw = _pair(kernel_size)
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"groups={groups} must divide in_channels={in_channels} and "
+                             f"out_channels={out_channels}")
         self.stride = _pair(stride)
+        self.groups = groups
         self.reflect, self.padding = _canon_padding(padding)
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kh, kw, device=device)
+            torch.empty(out_channels, in_channels // groups, kh, kw, device=device)
         )
         self.bias = (
             nn.Parameter(torch.empty(out_channels, device=device)) if use_bias else None
         )
         self._kernel_init = kernel_init or init_lib.torch_default_conv()
-        self._bias_init = init_lib.uniform_bias(kh * kw * in_channels)
+        self._bias_init = init_lib.uniform_bias(kh * kw * in_channels // groups)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -143,7 +152,7 @@ class Conv2d(nn.Module):
         x, w, b = _cast(self, x)
         if self.reflect is not None:
             x = reflect_pad(x, self.reflect)
-        return F.conv2d(x, w, b, self.stride, self.padding)
+        return F.conv2d(x, w, b, self.stride, self.padding, groups=self.groups)
 
 
 class ConvTranspose2d(nn.Module):
@@ -466,3 +475,43 @@ def reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) ->
     for m in module.modules():
         if isinstance(m, (Conv2d, ConvTranspose2d, LinearBlock)):
             m.reset_parameters(generator)
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    use_dropout: bool,
+    generator: Optional[torch.Generator] = None,
+    keep_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """JAX's ``nn.Dropout(rate, deterministic=not use_dropout)``: ``x``
+    itself when off or at rate 0, else :func:`apply_dropout` with
+    ``keep_mask``, drawn from ``generator`` when none is given."""
+    if not use_dropout or rate == 0.0:
+        return x
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError(
+                "use_dropout=True needs a torch.Generator or a keep_mask; "
+                "the port draws no randomness from torch's global RNG"
+            )
+        keep_mask = dropout_keep_mask(x.shape, rate, generator, x.device)
+    return apply_dropout(x, keep_mask, rate)
+
+
+def dropout_keep_mask(
+    shape, rate: float, generator: torch.Generator, device=None
+) -> torch.Tensor:
+    """Boolean keep-mask, each element kept with probability 1 - rate."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def apply_dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """JAX's ``nn.Dropout``: ``where(mask, x / keep, 0)``. The JAX divisor
+    is the Python float ``keep`` taken in ``x``'s dtype, so it is rounded
+    to that dtype here too (0.69921875 in bfloat16)."""
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    if keep_mask.shape != x.shape:
+        raise ValueError(f"keep_mask {tuple(keep_mask.shape)} != input {tuple(x.shape)}")
+    return torch.where(keep_mask.to(device=x.device, dtype=torch.bool), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))

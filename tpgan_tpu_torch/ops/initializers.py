@@ -8,7 +8,9 @@ layers built with ``init=None`` on torch's default Conv2d / Linear init
 (kaiming-uniform with a=sqrt(5)). The fans, as the JAX package computes
 them:
 
-* Conv2d weight (out, in, kh, kw): fan_in = in*kh*kw, fan_out = out*kh*kw.
+* Conv2d weight (out, in, kh, kw): fan_in = in*kh*kw, fan_out = out*kh*kw;
+  a grouped conv's weight (out, in/groups, kh, kw) gives in/groups*kh*kw,
+  as JAX's (kh, kw, in/groups, out) does.
 * ConvTranspose2d weight (in, out, kh, kw): torch reads ``weight.size(1)``,
   so fan_in = out*kh*kw (the *output* channels); fan_out = in*kh*kw.
 * Linear weight (out, in): fan_in = in, fan_out = out.
@@ -111,6 +113,18 @@ def xavier_normal_linear() -> Initializer:
 
 def torch_default_linear() -> Initializer:
     return _shape_init(lambda s: _uniform(1.0 / math.sqrt(s[1])))
+
+
+def normal(std: float) -> Initializer:
+    """N(0, std^2), whatever the shape (the classifier head's N(0, 0.01))."""
+    return _normal(std)
+
+
+def he_ssd_conv() -> Initializer:
+    """MobileNetV2's explicit He re-init of an OIHW conv weight:
+    N(0, sqrt(2 / (kh * kw * out))) (reference: MobileNetV2.py:225-233);
+    a depthwise weight (C, 1, kh, kw) has out = C."""
+    return _shape_init(lambda s: _normal(math.sqrt(2.0 / (s[2] * s[3] * s[0]))))
 
 
 def conv_kernel_init(init_name, activation_slope: float) -> Initializer:

@@ -1,3 +1,4 @@
 """Model construction, the synthesis (serving) function, the fused
-WGAN-GP train step with its options and its optimizer, checkpoints, the
-training loop, its metrics and sample grids."""
+WGAN-GP train step with its options and its optimizers, checkpoints, the
+training loop, its metrics and sample grids, and the identity
+embedder's training."""

@@ -7,7 +7,10 @@ BatchNorm statistics), both optimizers' ``state_dict`` and the EMA
 weights, all copied to the host. It is written under a temporary name and
 renamed, so a directory named by a step always holds a whole checkpoint.
 The JAX package's Orbax checkpoints do not load here; a JAX state comes
-across through ``tpgan_tpu_torch.convert.load_jax_gan_state``.
+across through ``tpgan_tpu_torch.convert.load_jax_gan_state``. One model's
+variables alone (the identity embedder's) are saved in the same layout
+by :func:`save_model_variables`, with ``step`` and ``model`` (its
+``state_dict``) in place of the train state.
 
 ``import_mobilenet_v2_pth`` (``checkpoint.py:173``) comes with the
 detector slice (ROADMAP A10).
@@ -192,6 +195,40 @@ def restore_gan_checkpoint(
     that the state does not track are dropped, so evaluation scores the
     live weights. Any other mismatch raises."""
     return _apply(_load(directory, step), state_like, tolerate_ema=True)
+
+
+def save_model_variables(
+    directory: str, step: int, model: torch.nn.Module, max_to_keep: int = 5
+) -> None:
+    """Save one model's variables, its ``state_dict`` (weights and
+    BatchNorm statistics) and no optimizer state, as ``directory/<step>``
+    in the layout of :func:`save_checkpoint`, keeping the newest
+    ``max_to_keep`` steps: what the JAX embedder training saves
+    (``tpgan_tpu/train/feature_extract.py:234-247``) and an identity
+    checkpoint restores. Raises ``FileExistsError`` when that step is
+    saved already."""
+    directory = os.path.abspath(directory)
+    if os.path.exists(os.path.join(directory, str(step))):
+        raise FileExistsError(f"a checkpoint of step {step} exists under {directory}")
+    os.makedirs(directory, exist_ok=True)
+    finalize_checkpoints(directory)
+    _write(directory, step, _to_host({"step": int(step), "model": model.state_dict()}),
+           max_to_keep)
+
+
+def restore_model_variables(
+    directory: str, model: torch.nn.Module, step: Optional[int] = None
+) -> int:
+    """Load ``directory/<step>`` (the newest when ``step`` is None), saved
+    by :func:`save_model_variables`, into ``model`` (strict: keys and
+    shapes must match; values are cast to the model's dtypes) and return
+    its step. Raises ``FileNotFoundError`` when there is none and
+    ``ValueError`` for a train-state checkpoint."""
+    payload = _load(directory, step)
+    if "model" not in payload:
+        raise ValueError(f"{directory} holds a GAN train state, not one model's variables")
+    model.load_state_dict(payload["model"], strict=True)
+    return int(payload["step"])
 
 
 # --------------------------------------------------------------------------

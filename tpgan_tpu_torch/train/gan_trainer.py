@@ -50,9 +50,10 @@ from tpgan_tpu_torch.config import Config
 from tpgan_tpu_torch.losses.composite import generator_loss_components, total_generator_loss
 from tpgan_tpu_torch.losses.gan import discriminator_loss, gradient_penalty
 from tpgan_tpu_torch.models.discriminator import Discriminator
-from tpgan_tpu_torch.models.generator import Generator, dropout_keep_mask
+from tpgan_tpu_torch.models.generator import Generator
 from tpgan_tpu_torch.ops.blocks import (
     BatchNorm2d,
+    dropout_keep_mask,
     frozen_batch_stats,
     reset_parameters,
     set_compute_dtype,
