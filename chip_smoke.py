@@ -151,8 +151,36 @@ Phases, each of which exits non-zero on failure:
                  one, the first call (the graph's capture) timed apart. Its
                  launches go on their own line.
 
+16. detector    — the landmark detector (no port kernel on its path): (1)
+                 a CelebA-layout corpus of 640 JPEGs (160-320 px, 512
+                 subjects, quality 92) rendered by the port's
+                 ``generate_pretrain_protocol``, 16 files decoded by the
+                 host library and the Python reference, equal; the codec's
+                 encode and decode images/s on one thread; (2) the forward
+                 on the card in both head modes, eval and train-mode
+                 BatchNorm, within 1e-4 of each output's largest of the
+                 same weights' f32 forward on the CPU (TF32 off); (3) one
+                 f32 pretrain step, batch 8, 256², on the card against the
+                 CPU with the same uniforms: the assignment equal, the loss
+                 within 1e-5 |ref| + 1e-6, parameters and statistics within
+                 DETECTOR_STEP_ULPS ulp of each leaf's largest; (4)
+                 ``run_pretrain`` as ``cmd_pretrain`` drives it, 2 epochs
+                 and a resume to 3, from the JPEG files through
+                 ``batch_iterator`` (one 256 bucket) and from two buckets
+                 (256, 384) resident in device memory with pixel-budget
+                 batches: metrics finite, parameters moved, the nose prior
+                 in ``detector_meta.json``, per-epoch checkpoints and
+                 ``best/``, the resume continuing the steps and the
+                 schedule, the checkpoint reloading bit for bit; (5) the
+                 eager f32 step's ms and images/s at batch 64, 256², both
+                 head modes (TF32 as cuDNN defaults it; the absolute head
+                 also with TF32 off), peak memory, a profile of one step
+                 (no port kernel in its trace) and the eval step's
+                 images/s. Its launches (none) go on their own line.
+
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
-phase 14's two loops, and phase 15's steps and protocol runs) is driven
+phase 14's two loops, phase 15's steps and protocol runs, and phase 16's
+two ``run_pretrain`` runs) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
@@ -268,6 +296,38 @@ EVAL_BATCH = 16
 EVAL_Z = 2
 EVAL_TIMED_PASSES = 3  # protocol passes timed after the checked one, for (e)'s images/s
 PROFILE_CAMERAS = {"110", "120", "090", "080", "130", "140", "010", "200"}
+# phase 16: the landmark detector. The CelebA-layout corpus at the JAX
+# package's defaults (160-320 px, 512 subjects), the pretrain config's
+# image size and batch (tpgan_tpu/config.py:54,61)
+DETECTOR_IMAGES = 640
+DETECTOR_DECODE_CHECK = 16
+DETECTOR_ENCODE_TIMED = 64
+DETECTOR_SIZE = 256
+DETECTOR_BATCH = 64
+DETECTOR_CHECK_BATCH = 2
+DETECTOR_STEP_BATCH = 8
+DETECTOR_F32_TOL = 1e-4  # of each output's largest magnitude, TF32 off
+# the f32 forward on the card against the CPU (TF32 off): eval mode within
+# DETECTOR_F32_TOL of each output's largest; train-mode BatchNorm takes
+# the batch's statistics, summed in other orders on the card and the CPU
+# (2.9e-5 - 1.1e-4 on the H100 at 700 W)
+DETECTOR_F32_TRAIN_TOL = 5e-4
+# the f32 step on the card against the CPU: the parameters' movement in
+# relative L2 over all leaves (the CPU tests hold each f32 side within
+# 2.5e-2 of a float64 run: the seeded MobileNetV2 is ill-conditioned in
+# f32; 7.8e-3 - 2.0e-2 card against CPU on the H100 at 700 W), and every
+# BatchNorm's running statistics within 1e-4 of its largest variance (a
+# running mean near 0 is noise: a leaf's own largest is no scale there,
+# nor for a bias that starts at 0)
+DETECTOR_MOVE_REL_L2 = 5e-2
+DETECTOR_STATS_TOL = 1e-4
+DETECTOR_TIMED_STEPS = 10
+# run_pretrain as cmd_pretrain drives it: 544 training and 64 validation
+# images, validation every 5 steps, 2 epochs then a resume to 3, the
+# learning rate's milestones at epochs 1 and 2
+DETECTOR_OVERRIDES = ["pretrain.train_data_ratio=0.85", "pretrain.validation_data_ratio=0.1",
+                      "pretrain.log_step_of_batchs=5", "pretrain.num_epochs=2",
+                      "pretrain.learning_rate_scheduler_milestone=(1,2)"]
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2074,6 +2134,413 @@ def run_identity_eval(dev, tag, train_rates, graphed_rates):
         f"warm-up forward); phase 15 took {time.perf_counter() - start:.1f} s")
 
 
+def detector_corpus(root, tag):
+    """Phase 16 (1): the CelebA-layout corpus rendered and written by the
+    port's ``generate_pretrain_protocol`` (JPEGs from its encoder); 16
+    files decoded by the host library and by the plain Python reference,
+    equal; the encoder's and the host decoder's images/s on one thread."""
+    import numpy as np
+
+    from tpgan_tpu_torch.data import celeba, imageio, native
+    from tpgan_tpu_torch.data.synthetic_faces import generate_pretrain_protocol, render_face
+
+    t0 = time.perf_counter()
+    txt = generate_pretrain_protocol(root, DETECTOR_IMAGES)
+    render_write_s = time.perf_counter() - t0
+    paths = celeba.find_images(root)
+    if len(paths) != DETECTOR_IMAGES:
+        raise AssertionError(f"corpus: {len(paths)} files, expected {DETECTOR_IMAGES}")
+    rng = np.random.RandomState(7)
+    faces = [render_face(int(rng.randint(0, 512)), float(rng.uniform(-60, 60)),
+                         int(rng.randint(160, 321)))[0] for _ in range(DETECTOR_ENCODE_TIMED)]
+    t0 = time.perf_counter()
+    for i, face in enumerate(faces):
+        imageio.write_jpeg(os.path.join(root, f"timed_{i}.jpeg"), face, quality=92)
+    encode_rate = len(faces) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    decoded = [imageio.read_rgb(p) for p in paths]
+    decode_rate = len(paths) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for p, img in zip(paths[:DETECTOR_DECODE_CHECK], decoded):
+        ref = imageio.read_jpeg(p, entropy=native.jpeg_huff_decode_reference)
+        if not np.array_equal(ref, img):
+            raise AssertionError(f"corpus: the host decoder and the reference differ on {p}")
+    ref_s = (time.perf_counter() - t0) / DETECTOR_DECODE_CHECK
+    sides = [max(d.shape[:2]) for d in decoded]
+    log(f"detector (1): {DETECTOR_IMAGES} images ({min(sides)}-{max(sides)} px, quality 92) "
+        f"rendered and written in {render_write_s:.1f} s; {DETECTOR_DECODE_CHECK} decoded by "
+        f"the host library equal to the Python reference ({ref_s * 1e3:.0f} ms/image); one "
+        f"thread: encode {encode_rate:.1f} images/s ({DETECTOR_ENCODE_TIMED} faces of 160-320 "
+        f"px, render excluded), decode {decode_rate:.1f} images/s (the {DETECTOR_IMAGES} "
+        f"files) {tag}")
+    return txt
+
+
+def detector_offsets(loc, head_mode, size):
+    """The anchor head's loc as its offsets from the anchor centres in
+    stride units, (loc - centre) / stride: what its convs emit, before the
+    decode multiplies their f32 noise by the stride (up to 256 px at the
+    1x1 scales). The absolute head's loc as it is."""
+    from tpgan_tpu_torch.models.mobilenet_v2 import anchor_centres, anchor_strides
+
+    if head_mode != "anchor_offset":
+        return loc
+    return (loc - anchor_centres((size, size))) / anchor_strides((size, size))
+
+
+def check_detector_forward(dev, tag):
+    """Phase 16 (2): the detector's forward on the card in both head
+    modes, eval and train-mode BatchNorm, against the same seeded
+    weights' f32 forward on the CPU (TF32 off, deterministic cuDNN): cls,
+    and the absolute head's loc, within DETECTOR_F32_TOL (train mode:
+    DETECTOR_F32_TRAIN_TOL) of each output's largest magnitude; the
+    anchor head's loc as its offsets in stride units
+    (``detector_offsets``)."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    x = torch.from_numpy(np.random.RandomState(3).uniform(
+        0, 1, (DETECTOR_CHECK_BATCH, 3, DETECTOR_SIZE, DETECTOR_SIZE)).astype(np.float32))
+    lines, bad = [], []
+    for head_mode in ("absolute", "anchor_offset"):
+        cfg = make_config({"pretrain": {"head_mode": head_mode}})
+        model = build_detector(cfg, dev, seed=4)
+        cpu = build_detector(cfg, "cpu", seed=4)
+        cpu.load_state_dict(model.state_dict())
+        for train in (False, True):
+            model.train(train)
+            cpu.train(train)
+            with torch.no_grad():
+                want = cpu(x)
+                _f32_exact(True)
+                got = [t.cpu() for t in model(x.to(dev))]
+                _f32_exact(False)
+            pairs = [(detector_offsets(got[0], head_mode, DETECTOR_SIZE),
+                      detector_offsets(want[0], head_mode, DETECTOR_SIZE)), (got[1], want[1])]
+            errs = [float((g - w).abs().max() / w.abs().max()) for g, w in pairs]
+            raw_loc = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+            what = f"{head_mode} {'train' if train else 'eval'}"
+            lines.append(f"{what} {errs[0]:.2e}, {errs[1]:.2e} (loc itself {raw_loc:.2e})")
+            bound = DETECTOR_F32_TRAIN_TOL if train else DETECTOR_F32_TOL
+            if not max(errs) <= bound or not all(torch.isfinite(g).all() for g in got):
+                bad.append(what)
+        del model, cpu
+    log(f"detector (2): forward at batch {DETECTOR_CHECK_BATCH}, {DETECTOR_SIZE}x"
+        f"{DETECTOR_SIZE}, card against CPU, max|diff| of max for (loc, cls), the anchor "
+        f"head's loc as offsets in stride units: {'; '.join(lines)} (bound "
+        f"{DETECTOR_F32_TOL} eval, {DETECTOR_F32_TRAIN_TOL} train) {tag}")
+    if bad:
+        raise AssertionError(f"detector forward on the card vs the CPU beyond the bound: {bad}")
+
+
+def _bn_stats_gap(got, want) -> float:
+    """The largest gap of any BatchNorm's running mean or variance, as a
+    share of that BatchNorm's largest running variance."""
+    gap = 0.0
+    for k in want:
+        if k.endswith("running_var"):
+            base = k[:-len("running_var")]
+            scale = float(want[k].abs().max())
+            for s in ("running_mean", "running_var"):
+                gap = max(gap, float((got[base + s] - want[base + s]).abs().max()) / scale)
+    return gap
+
+
+def check_detector_step(dev, tag, ds):
+    """Phase 16 (3): one f32 pretrain step (batch 8, 256x256, uint8 items
+    of the corpus, TF32 off, deterministic cuDNN, the same uniforms) on
+    the card against the CPU: the assignment equal, the loss within
+    1e-5 |ref| + 1e-6, the parameters' movement within
+    DETECTOR_MOVE_REL_L2 of the CPU's in relative L2 over all leaves,
+    the BatchNorm statistics within DETECTOR_STATS_TOL."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.models.mobilenet_v2 import anchor_centres
+    from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    items = [ds[i] for i in range(DETECTOR_STEP_BATCH)]
+    x = np.stack([np.clip(im * 255.0, 0.0, 255.0).astype(np.uint8) for im, _ in items])
+    lbl = np.stack([l for _, l in items])
+    n = anchor_centres((DETECTOR_SIZE, DETECTOR_SIZE)).shape[0]  # 1,540 anchors at 256
+    u = torch.rand((DETECTOR_STEP_BATCH, n), generator=torch.Generator().manual_seed(9))
+    runs = []
+    for head_mode in ("absolute", "anchor_offset"):
+        cfg = make_config({"pretrain": {"head_mode": head_mode}})
+        sides = []
+        for d in (dev, torch.device("cpu")):
+            state, model, opt = create_pretrain_state(cfg, 6, d)
+            if sides:
+                model.load_state_dict(sides[0][3])
+            before = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+            step = make_pretrain_step(cfg, model, opt, state.scheduler)
+            _f32_exact(d.type == "cuda")
+            state, metrics, aux = step(state, x, lbl, u=u, return_aux=True)
+            _f32_exact(False)
+            sides.append((metrics, aux, {k: v.detach().cpu() for k, v in
+                                         model.state_dict().items()}, before))
+        (gm, ga, gsd, g0), (cm, ca, csd, c0) = sides
+        leaves = [k for k, _ in create_pretrain_state(cfg, 6, "cpu")[1].named_parameters()]
+        move = lambda sd, sd0: torch.cat([(sd[k] - sd0[k]).double().ravel()  # noqa: E731
+                                          for k in leaves])
+        mg, mc = move(gsd, g0), move(csd, c0)
+        move_gap = float((mg - mc).norm() / mc.norm())
+        flips = {k: int((ga[k].cpu() != ca[k]).sum()) for k in ("assigned", "keep_bg")}
+        loss_gap = abs(float(gm["loss"]) - float(cm["loss"]))
+        leaf_gaps = sorted((float((gsd[k] - g0[k] - csd[k] + c0[k]).norm()
+                                  / (csd[k] - c0[k]).norm()), k) for k in leaves)
+        stats = _bn_stats_gap(gsd, csd)
+        log(f"detector (3): f32 step {head_mode}, batch {DETECTOR_STEP_BATCH}: assignment "
+            f"differs in {flips} anchors ({int((ca['assigned'] >= 0).sum())} positives, "
+            f"{int(ca['keep_bg'].sum())} background kept on the CPU), loss "
+            f"{float(gm['loss']):.6f} card vs {float(cm['loss']):.6f} CPU (|diff| "
+            f"{loss_gap:.2e}); the parameters' movement {move_gap:.3e} off the CPU's in "
+            f"relative L2 over all leaves (bound {DETECTOR_MOVE_REL_L2}; the worst leaf "
+            f"{leaf_gaps[-1][1]} {leaf_gaps[-1][0]:.3e}); BatchNorm statistics {stats:.2e} of "
+            f"their largest variance (bound {DETECTOR_STATS_TOL}) {tag}")
+        if any(flips.values()):
+            raise AssertionError(f"detector f32 step {head_mode}: the assignment differs "
+                                 f"between the card and the CPU: {flips}")
+        if not loss_gap <= 1e-5 * abs(float(cm["loss"])) + 1e-6:
+            raise AssertionError(f"detector f32 step {head_mode}: loss {float(gm['loss'])} on "
+                                 f"the card, {float(cm['loss'])} on the CPU")
+        if move_gap > DETECTOR_MOVE_REL_L2 or stats > DETECTOR_STATS_TOL:
+            raise AssertionError(f"detector f32 step {head_mode}: movement {move_gap}, "
+                                 f"statistics {stats} off the CPU's")
+        runs.append(move_gap)
+    return runs
+
+
+def _pretrain_like_cli(dev, cfg, ck, resume, device_data):
+    """``cmd_pretrain`` (``tpgan_tpu/cli.py:86-165``) on the port: the
+    dataset and its split, the nose prior from the training labels, the
+    host batch iterator (or, ``device_data``, the buckets resident in
+    device memory with pixel-budget batches), a metrics writer and
+    ``run_pretrain``. Returns (the final state, steps per epoch, the log
+    directory)."""
+    import numpy as np
+
+    from tpgan_tpu_torch.data.celeba import CelebALandmarkDataset
+    from tpgan_tpu_torch.data.packing import (
+        device_bucketed_batch_iterator,
+        device_bucketed_eval_batches,
+        load_pretrain_to_device,
+        pixel_budget_batches,
+    )
+    from tpgan_tpu_torch.data.pipeline import batch_iterator, bucketed_batch_iterator
+    from tpgan_tpu_torch.train.metrics import MetricWriter
+    from tpgan_tpu_torch.train.pretrain import fit_nose_prior, run_pretrain
+
+    p = cfg.pretrain
+    ds = CelebALandmarkDataset(p.txt_name, p.data_root_dir, p.image_size, buckets=p.image_buckets)
+    train_idx, val_idx, _ = ds.split(p.train_data_ratio, p.validation_data_ratio)
+    steps_per_epoch = max(len(train_idx) // p.batch_size, 1)
+    nose_prior = fit_nose_prior(np.stack([
+        ds.labels[os.path.basename(ds.image_paths[i])] for i in train_idx]))
+    iterators = []
+    if device_data:
+        train_groups = load_pretrain_to_device(ds, train_idx, dev)
+        val_groups = load_pretrain_to_device(ds, val_idx, dev) if val_idx else {}
+        batch_for = (pixel_budget_batches({**val_groups, **train_groups}, p.batch_size)
+                     if p.image_buckets else None)
+        if batch_for:
+            steps_per_epoch = max(1, int(sum(int(g["img"].shape[0]) / batch_for[k]
+                                             for k, g in train_groups.items())))
+        train_it = device_bucketed_batch_iterator(train_groups, p.batch_size,
+                                                  seed=cfg.train.seed, batch_for=batch_for)
+
+        def val_batches():
+            return device_bucketed_eval_batches(val_groups, p.batch_size, batch_for=batch_for)
+    else:
+        make_iter = bucketed_batch_iterator if p.image_buckets else batch_iterator
+        train_it = make_iter(ds, p.batch_size, shuffle=True, indices=train_idx, epochs=None)
+        iterators.append(train_it)
+
+        def val_batches():
+            it = make_iter(ds, p.batch_size, shuffle=False, indices=val_idx, epochs=1,
+                           drop_last=False)
+            iterators.append(it)
+            return it
+    log_dir = os.path.join(p.log_root_dir, p.model_name)
+    writer = MetricWriter(log_dir, use_tensorboard=False)
+    try:
+        state = run_pretrain(cfg, train_it, val_batches_fn=val_batches if val_idx else None,
+                             steps_per_epoch=steps_per_epoch, writer=writer, checkpoint_dir=ck,
+                             resume=resume, nose_prior=nose_prior, device=dev)
+    finally:
+        writer.close()
+        for it in iterators:
+            it.close()
+    return state, steps_per_epoch, log_dir
+
+
+def run_detector_pretrain(dev, tag, root, txt, name, overrides):
+    """Phase 16 (4): ``run_pretrain`` as ``cmd_pretrain`` drives it, 2
+    epochs then a resume to 3: metrics finite, the parameters moved, the
+    sidecar with the nose prior, per-epoch checkpoints and ``best/``, the
+    resume continuing the step count and the schedule, the checkpoint
+    reloading bit for bit. Returns the wrapper launches of the two runs."""
+    import torch
+
+    from tpgan_tpu_torch.config import flat_override, make_config
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
+    from tpgan_tpu_torch.train.pretrain import (
+        build_detector,
+        create_pretrain_state,
+        load_nose_prior,
+    )
+
+    run_root = os.path.join(root, name)
+    ck = os.path.join(run_root, "ck")
+    base = [f"pretrain.data_root_dir={root}", f"pretrain.txt_name={txt}",
+            f"pretrain.log_root_dir={os.path.join(run_root, 'logs')}", *DETECTOR_OVERRIDES,
+            *overrides]
+    cfg = flat_override(make_config(), base)
+    device_data = "device" in name
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, spe, log_dir = _pretrain_like_cli(dev, cfg, ck, False, device_data)
+    first_s = time.perf_counter() - t0
+    first_step = state.step
+    init = build_detector(cfg, dev, seed=0)
+    moved = sum(int((a != b).sum()) for a, b in zip(state.model.parameters(), init.parameters()))
+    if first_step != 2 * spe or latest_step(ck) != first_step or not moved:
+        raise AssertionError(f"{name}: {first_step} steps ({spe} per epoch), newest checkpoint "
+                             f"{latest_step(ck)}, {moved} parameter elements moved")
+    cfg3 = flat_override(cfg, ["pretrain.num_epochs=3"])
+    t0 = time.perf_counter()
+    resumed, _, _ = _pretrain_like_cli(dev, cfg3, ck, True, device_data)
+    resume_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    torch.cuda.synchronize()
+    epochs = sorted(int(d) for d in os.listdir(ck) if d.isdigit())
+    lr = resumed.optimizer.param_groups[0]["lr"]
+    want_lr = cfg.optimizer_param.learning_rate * cfg.pretrain.learning_rate_scheduler_gamma ** 2
+    if resumed.step != 3 * spe or epochs != [spe, 2 * spe, 3 * spe] or \
+            resumed.scheduler.last_epoch != 3 * spe or abs(lr - want_lr) > 1e-12:
+        raise AssertionError(f"{name} resume: step {resumed.step}, checkpoints {epochs}, "
+                             f"schedule at {resumed.scheduler.last_epoch} with lr {lr}")
+    with open(os.path.join(ck, "best_acc.json")) as f:
+        best = json.load(f)
+    if latest_step(os.path.join(ck, "best")) != best["step"] or load_nose_prior(ck) is None:
+        raise AssertionError(f"{name}: best/ holds {latest_step(os.path.join(ck, 'best'))}, "
+                             f"best_acc.json {best}, nose prior {load_nose_prior(ck)}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(l) for l in f]
+    vals = [l for l in lines if "val_accuracy" in l]
+    if not lines or not vals or not all(
+            all(isinstance(v, (int, float)) and v == v and abs(v) != float("inf")
+                for v in l.values()) for l in lines):
+        raise AssertionError(f"{name}: metrics {lines[-3:]}")
+    fresh = create_pretrain_state(cfg3, 11, dev, steps_per_epoch=spe)[0]
+    restore_checkpoint(ck, fresh)
+    same = all(torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                                fresh.model.state_dict().values()))
+    if not same or fresh.step != resumed.step:
+        raise AssertionError(f"{name}: the checkpoint does not reload bit for bit")
+    log(f"detector (4) {name}: {spe} steps per epoch, 2 epochs in {first_s:.1f} s, resumed to "
+        f"step {resumed.step} in {resume_s:.1f} s (lr {lr:.1e}); checkpoints {epochs} + best/ "
+        f"at step {best['step']} (val_accuracy {best['best_acc']:.4f}); {len(vals)} "
+        f"validations, last {json.dumps({k: round(v, 4) for k, v in vals[-1].items()})}; "
+        f"{moved} parameter elements moved; reloads bit for bit {tag}")
+    return launches
+
+
+def time_detector(dev, tag):
+    """Phase 16 (5): the eager f32 pretrain step's ms and images/s at
+    batch 64, 256², both head modes with cuDNN's default TF32 and the
+    absolute head with TF32 off, peak memory, a profile of one step, and
+    the eval step's images/s."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.entry import pretrain_entry
+    from tpgan_tpu_torch.train.pretrain import make_eval_step
+
+    rates = {}
+    for head_mode, tf32 in (("absolute", True), ("anchor_offset", True), ("absolute", False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn, (state, images, labels, gen) = pretrain_entry(head_mode=head_mode)
+        for _ in range(3):
+            state, metrics = step_fn(state, images, labels, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DETECTOR_TIMED_STEPS):
+            state, metrics = step_fn(state, images, labels, gen)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / DETECTOR_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"detector step {head_mode}: metrics {metrics}")
+        box = [state]
+
+        def one_step():
+            box[0], _m = step_fn(box[0], images, labels, gen)
+
+        stats = profile(one_step, 2, f"detector f32 pretrain step {head_mode} batch "
+                        f"{DETECTOR_BATCH}, TF32 {'on' if tf32 else 'off'}", "step", tag,
+                        {"conv": ["conv", "xmma", "gemm"], "batch_norm": ["batch_norm", "bn_"]})
+        check_traced(stats, f"detector step {head_mode}", {})
+        eval_step = make_eval_step(make_config({"pretrain": {"head_mode": head_mode}}),
+                                   state.model)
+        for _ in range(2):
+            eval_step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DETECTOR_TIMED_STEPS):
+            m = eval_step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        eval_rate = DETECTOR_BATCH * DETECTOR_TIMED_STEPS / (time.perf_counter() - t0)
+        if not all(torch.isfinite(v) for v in m.values()):
+            raise AssertionError(f"detector eval {head_mode}: metrics {m}")
+        log(f"time: detector f32 pretrain step {head_mode}, batch {DETECTOR_BATCH}, "
+            f"{DETECTOR_SIZE}x{DETECTOR_SIZE}: {dt * 1e3:.2f} ms/step = "
+            f"{DETECTOR_BATCH / dt:.1f} images/s ({DETECTOR_TIMED_STEPS} steps after 3 "
+            f"warm-up, inputs on the device, cuDNN's TF32 {'on' if tf32 else 'off'}); peak "
+            f"memory {peak:.2f} GiB; eval step {eval_rate:.1f} images/s {tag}")
+        rates[(head_mode, tf32)] = (DETECTOR_BATCH / dt, peak, eval_rate, stats)
+        del step_fn, state, images, labels, gen, box, eval_step
+    torch.backends.cudnn.allow_tf32 = True
+    return rates
+
+
+def run_detector(dev, tag):
+    """Phase 16: the landmark detector, (1)-(5). Launches none of the
+    port's kernels: its launches go on a line of their own."""
+    import torch
+
+    from tpgan_tpu_torch.data.celeba import CelebALandmarkDataset
+    from tpgan_tpu_torch.data.pipeline import stop_worker_server
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        txt = detector_corpus(root, tag)
+        check_detector_forward(dev, tag)
+        check_detector_step(dev, tag, CelebALandmarkDataset(txt, root, DETECTOR_SIZE))
+        torch.cuda.empty_cache()
+        files = run_detector_pretrain(dev, tag, root, txt, "files-256", [])
+        stop_worker_server()
+        device = run_detector_pretrain(dev, tag, root, txt, "device-256-384",
+                                       ["pretrain.image_buckets=(256,384)"])
+        torch.cuda.empty_cache()
+        rates = time_detector(dev, tag)
+    launched = {k: files[k] + device[k] for k in files}
+    if any(launched.values()):
+        raise AssertionError(f"detector: the pretrain runs launched port kernels {launched}")
+    log(f"detector: wrapper launches {launched} in the two run_pretrain runs (the detector "
+        f"path runs none of the port's kernels); phase 16 took "
+        f"{time.perf_counter() - start:.1f} s")
+    return rates
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -2337,6 +2804,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_identity_eval(dev, tag, train_rates, graphed_rates)
+
+    # ---- 16. the landmark detector: corpus, parity, run_pretrain, timings ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_detector(dev, tag)
 
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]

@@ -24,6 +24,12 @@ from tpgan_tpu_torch.train.gan_trainer import (
 
 torch.set_num_threads(1)
 
+# the detector's f32 step, card against CPU: the movement of the
+# parameters in relative L2 over all leaves (the CPU tests hold each f32
+# side within 2.5e-2 of a float64 run: the seeded MobileNetV2 is
+# ill-conditioned in f32; chip_smoke.py phase 16 measured 7.8e-3 - 2.0e-2)
+PRETRAIN_MOVE_REL_L2 = 5e-2
+
 
 def _profiler_warm_up(device):
     """A throwaway kernel first in a trace: on the H100 the first device
@@ -804,3 +810,83 @@ def test_identity_step_graph_replays_equal_eager_steps(cuda):
     assert all(torch.equal(a, b) for a, b in zip(t_eager, t_graph))
     assert all(p.grad is None for p in embedder.parameters())
     assert all(torch.equal(v, before[k]) for k, v in embedder.state_dict().items())
+
+
+def _anchor_offsets(loc, head_mode, size):
+    """The anchor head's loc as offsets from its anchors in stride units
+    (what its convs emit; the decode multiplies their noise by the
+    stride, up to 256 px); the absolute head's loc as it is."""
+    from tpgan_tpu_torch.models.mobilenet_v2 import anchor_centres, anchor_strides
+
+    if head_mode != "anchor_offset":
+        return loc
+    return (loc - anchor_centres((size, size))) / anchor_strides((size, size))
+
+
+@pytest.mark.parametrize("head_mode", ["absolute", "anchor_offset"])
+def test_detector_forward_on_the_card_matches_the_cpu(cuda, head_mode):
+    """The full landmark detector in f32 (TF32 off, deterministic cuDNN)
+    on the card against the same weights on the CPU: cls, and loc (the
+    anchor head's as its offsets in stride units), within 1e-4 of each
+    output's largest magnitude in eval mode, 5e-4 with train-mode
+    BatchNorm (the batch statistics' sums run in other orders)."""
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    _f32_exact()
+    cfg = make_config({"pretrain": {"head_mode": head_mode}})
+    model = build_detector(cfg, cuda, seed=2)
+    cpu = build_detector(cfg, "cpu", seed=2)
+    cpu.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).uniform(0, 1, (2, 3, 256, 256))
+                         .astype(np.float32))
+    for train in (False, True):
+        model.train(train)
+        cpu.train(train)
+        with torch.no_grad():
+            got = [t.cpu() for t in model(x.to(cuda))]
+            want = list(cpu(x))
+        got[0], want[0] = (_anchor_offsets(t, head_mode, 256) for t in (got[0], want[0]))
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= (5e-4 if train else 1e-4) * float(w.abs().max())
+    torch.backends.cudnn.deterministic = False
+
+
+def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 pretrain step (batch 4, 256x256, uint8 input, the same
+    uniforms) on the card against the CPU: the assignment equal, the loss
+    within 1e-5 x |loss| + 1e-6, the parameters' movement within
+    PRETRAIN_MOVE_REL_L2 of the CPU's in relative L2 over all leaves and
+    every BatchNorm's running statistics within 1e-4 of its largest
+    running variance (running means sit near 0)."""
+    from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    _f32_exact()
+    cfg = make_config()
+    rng = np.random.RandomState(1)
+    x = (rng.uniform(0, 1, (4, 256, 256, 3)) * 255).astype(np.uint8)
+    lbl = rng.uniform(64, 192, (4, 8)).astype(np.float32)
+    u = torch.from_numpy(rng.uniform(0, 1, (4, 1540)).astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        state, model, opt = create_pretrain_state(cfg, 2, dev)
+        if runs:
+            model.load_state_dict(runs[0][3])
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        step = make_pretrain_step(cfg, model, opt, state.scheduler)
+        state, metrics, aux = step(state, x, lbl, u=u, return_aux=True)
+        runs.append((metrics, aux, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     before, [k for k, _ in model.named_parameters()]))
+    torch.backends.cudnn.deterministic = False
+    (gm, ga, gsd, g0, leaves), (cm, ca, csd, c0, _) = runs
+    assert torch.equal(ga["assigned"].cpu(), ca["assigned"])
+    assert torch.equal(ga["keep_bg"].cpu(), ca["keep_bg"])
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-5 * abs(float(cm["loss"])) + 1e-6
+    move = lambda sd, sd0: torch.cat([(sd[k] - sd0[k]).double().ravel()  # noqa: E731
+                                      for k in leaves])
+    mg, mc = move(gsd, g0), move(csd, c0)
+    assert float((mg - mc).norm() / mc.norm()) <= PRETRAIN_MOVE_REL_L2
+    for k, w in csd.items():
+        if k.endswith("running_var"):
+            base, scale = k[:-len("running_var")], float(w.abs().max())
+            for stat in ("running_mean", "running_var"):
+                assert float((gsd[base + stat] - csd[base + stat]).abs().max()) <= 1e-4 * scale, k

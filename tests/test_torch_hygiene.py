@@ -13,13 +13,14 @@ import pytest
 import torch
 
 from tpgan_tpu_torch.config import make_config
-from tpgan_tpu_torch.entry import entry, train_entry
+from tpgan_tpu_torch.entry import entry, pretrain_entry, train_entry
 from tpgan_tpu_torch.examples import conv_ab
 from tpgan_tpu_torch.train.feature_extract import (
     create_feature_extract_state,
     run_feature_extract_training,
 )
 from tpgan_tpu_torch.train.gan_trainer import build_generator, create_gan_state
+from tpgan_tpu_torch.train.pretrain import build_detector, create_pretrain_state, run_pretrain
 
 torch.set_num_threads(1)
 
@@ -85,6 +86,16 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         create_feature_extract_state(make_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_feature_extract_training(make_config(), iter(()), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_entry(head_mode="anchor_offset")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_detector(make_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_pretrain_state(make_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_pretrain(make_config(), iter(()), steps_per_epoch=1)
 
 
 def test_padded_channel_layout_is_refused():

@@ -1,6 +1,7 @@
 """Carry weights, and whole train states, from the JAX package to the
-port: the generator, the critic, a whole GAN train state, and the
-identity embedder (:func:`jax_embedder_variables_to_state_dict`).
+port: the generator, the critic, a whole GAN train state, the identity
+embedder (:func:`jax_embedder_variables_to_state_dict`) and the landmark
+detector (:func:`jax_detector_variables_to_state_dict`).
 
 The inverse of ``tpgan_tpu/train/checkpoint.py``'s torch-to-Flax import
 (``conv_weight``, ``deconv_weight``, ``_bn`` and the fc1 flatten
@@ -148,6 +149,22 @@ def jax_embedder_variables_to_state_dict(
     params = variables["params"]
     if set(params) != {"base"} or stem not in params["base"]:
         raise ValueError(f"not a {base_model_name} FeatureExtractModel tree (no base.{stem})")
+    return jax_generator_params_to_state_dict(params, variables.get("batch_stats"))
+
+
+def jax_detector_variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``MobileNetV2`` detector's numpy variables (``{"params",
+    "batch_stats"}``, e.g. ``jax.device_get`` of ``model.init``'s output or
+    of a pretrain state's ``params`` / ``batch_stats``) onto the port
+    detector's ``state_dict``, to be loaded with ``strict=True``. The same
+    walk as the embedder's: conv kernels HWIO -> OIHW (a depthwise kernel
+    (3, 3, 1, C) -> (C, 1, 3, 3)), biases as they are, every BatchNorm's
+    ``scale`` / ``bias`` / ``mean`` / ``var`` to ``weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``. Both head modes have the same
+    tree."""
+    params = variables["params"]
+    if "stem" not in params or "ssd_head" not in params:
+        raise ValueError("not a MobileNetV2 detector tree (no stem and ssd_head)")
     return jax_generator_params_to_state_dict(params, variables.get("batch_stats"))
 
 

@@ -1,9 +1,10 @@
 """Data subsystem of the port: patch-crop geometry, Multi-PIE-style GAN
 train/test data, packed uint8 shards, a DataLoader-based host pipeline
 with pinned, ``non_blocking`` device prefetch, and the synthetic
-batches. Files are read and written without an imaging package
-(:mod:`.imageio`). The CelebA pretraining data waits for the landmark
-detector's port."""
+batches, and the CelebA-layout landmark pretraining data (:mod:`.celeba`,
+multi-bucket batching, device-resident buckets). Files are read and
+written without an imaging package (:mod:`.imageio`: PNG, baseline JPEG,
+PIL's Lanczos and bilinear resize)."""
 
 from tpgan_tpu_torch.data.multipie import (
     TestDataset,

@@ -1,4 +1,4 @@
-"""Packed-shard dataset format — the port of the GAN half of
+"""Packed-shard dataset format and device-resident datasets — the port of
 ``tpgan_tpu/data/packing.py``.
 
 A one-time packing pass serialises a dataset into fixed-shape uint8
@@ -12,13 +12,17 @@ Format: ``<out_dir>/shard_<i>_<key>.npy`` (standard .npy, mmap-able) +
 ``<out_dir>/index.json`` with keys, shapes, dtypes, counts and, when the
 source has an ``img_list``, the items' basenames. The same files as the
 JAX package's.
+
+The landmark pretraining keeps its whole dataset in device memory too
+(:func:`load_pretrain_to_device`): one uint8 image tensor and one label
+tensor per bucket shape, batches gathered there by index.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -198,3 +202,86 @@ def device_batch_iterator(
             idx = rng.choice(n, size=(batch_size,), p=p)
         idx = torch.from_numpy(idx.astype(np.int64)).to(device)
         yield {k: v.index_select(0, idx) for k, v in data.items()}
+
+
+# --------------------------------------------------------------------------
+# Device-resident landmark pretraining data
+# --------------------------------------------------------------------------
+
+Groups = Dict[tuple, Dict[str, torch.Tensor]]
+
+
+def load_pretrain_to_device(dataset, indices,
+                            device: Optional[Union[str, torch.device]] = None) -> Groups:
+    """Decode every item of ``indices`` once on the host
+    (``CelebALandmarkDataset`` items: ``(image, label)``; None is the
+    oversize drop), group them by image shape, and put each group on the
+    device once: ``{shape: {"img": uint8 (n, H, W, 3), "label": float32
+    (n, 8)}}``, shapes in sorted order. A float image becomes uint8 as
+    the JAX package makes it, ``clip(img * 255, 0, 255)`` truncated.
+    ``device``: ``cuda`` unless asked otherwise."""
+    device = resolve_device(device)
+    groups: Dict[tuple, list] = {}
+    for i in indices:
+        item = dataset[i]
+        if item is None:
+            continue
+        img, lbl = item
+        if img.dtype != np.uint8:
+            img = np.clip(img * 255.0, 0.0, 255.0).astype(np.uint8)
+        groups.setdefault(img.shape, []).append((img, np.asarray(lbl, np.float32)))
+    out: Groups = {}
+    for key in sorted(groups):
+        imgs, lbls = zip(*groups[key])
+        out[key] = {"img": torch.from_numpy(np.stack(imgs)).to(device),
+                    "label": torch.from_numpy(np.stack(lbls)).to(device)}
+    return out
+
+
+def pixel_budget_batches(groups: Groups, batch_size: int) -> Dict[tuple, int]:
+    """Per-bucket batch sizes that hold the pixels per step constant:
+    ``batch_size`` at the smallest bucket, larger buckets scaled down by
+    area (at least 1)."""
+    if not groups:
+        return {}
+    min_area = min(k[0] * k[1] for k in groups)
+    return {k: max(1, int(batch_size * min_area / (k[0] * k[1]))) for k in groups}
+
+
+def _take(group: Dict[str, torch.Tensor], idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    idx_t = torch.from_numpy(idx.astype(np.int64)).to(group["img"].device)
+    return group["img"].index_select(0, idx_t), group["label"].index_select(0, idx_t)
+
+
+def device_bucketed_batch_iterator(
+    groups: Groups, batch_size: int, seed: int = 0,
+    batch_for: Optional[Dict[tuple, int]] = None,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Endless training batches from :func:`load_pretrain_to_device`'s
+    buckets: each step picks a bucket with probability proportional to
+    the steps it needs per epoch (items / its batch size), then draws a
+    batch with replacement and gathers it on the device. The picks come
+    from ``np.random.RandomState(seed)`` (``choice``, then ``randint``) as
+    in the JAX package, so both take the same items for the same seed;
+    only the index vector crosses to the device. ``batch_for``: the batch
+    size per bucket (:func:`pixel_budget_batches`)."""
+    keys = sorted(groups)
+    bs = {k: (batch_for or {}).get(k, batch_size) for k in keys}
+    steps = np.asarray([int(groups[k]["img"].shape[0]) / bs[k] for k in keys], np.float64)
+    probs = steps / steps.sum()
+    rng = np.random.RandomState(seed)
+    while True:
+        k = keys[int(rng.choice(len(keys), p=probs))]
+        yield _take(groups[k], rng.randint(0, int(groups[k]["img"].shape[0]), size=(bs[k],)))
+
+
+def device_bucketed_eval_batches(
+    groups: Groups, batch_size: int, batch_for: Optional[Dict[tuple, int]] = None,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """One pass over every item of every bucket in order (validation);
+    each bucket's last batch may be short."""
+    for k in sorted(groups):
+        n = int(groups[k]["img"].shape[0])
+        b_k = (batch_for or {}).get(k, batch_size)
+        for start in range(0, n, b_k):
+            yield _take(groups[k], np.arange(start, min(start + b_k, n)))

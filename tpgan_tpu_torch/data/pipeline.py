@@ -1,12 +1,15 @@
-"""Host input pipeline with device prefetch — the port of the GAN half of
+"""Host input pipeline with device prefetch — the port of
 ``tpgan_tpu/data/pipeline.py``.
 
 :func:`batch_iterator` is a ``torch.utils.data.DataLoader`` that yields
 the JAX iterator's batches in the JAX iterator's order: worker processes
 decode items ahead of the step, and with ``pin_memory`` the batches land
-in page-locked host memory. :func:`prefetch_to_device` keeps ``size``
-batches in flight to the device, each copied with ``non_blocking=True``
-on a side stream, so the copy of batch i+1 overlaps the step on batch i.
+in page-locked host memory. :func:`bucketed_batch_iterator` serves
+datasets whose items come in a few shapes (multi-bucket pretraining)
+from a thread pool, in the JAX iterator's order. :func:`prefetch_to_device`
+keeps ``size`` batches in flight to the device, each copied with
+``non_blocking=True`` on a side stream, so the copy of batch i+1 overlaps
+the step on batch i.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from torch.utils.data import DataLoader
 from tpgan_tpu_torch.utils.device import resolve_device
 
 
-_PRELOAD = ("torch", "tpgan_tpu_torch.data.multipie", "tpgan_tpu_torch.data.packing")
+_PRELOAD = ("torch", "tpgan_tpu_torch.data.multipie", "tpgan_tpu_torch.data.packing",
+            "tpgan_tpu_torch.data.celeba")
 
 
 class _JaxOrder:
@@ -112,6 +116,60 @@ def batch_iterator(
     for batch in loader:
         if batch is not None:
             yield batch
+
+
+def _item_shape_key(item: Any):
+    if isinstance(item, dict):
+        return tuple((k, np.shape(v)) for k, v in sorted(item.items()))
+    if isinstance(item, tuple):
+        return tuple(np.shape(v) for v in item)
+    return np.shape(item)
+
+
+def bucketed_batch_iterator(
+    dataset,
+    batch_size: int,
+    *,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_last: bool = True,
+    num_workers: int = 4,
+    indices: Optional[Sequence[int]] = None,
+    epochs: Optional[int] = None,
+) -> Iterator[Any]:
+    """:func:`batch_iterator` for datasets whose items come in a few
+    shapes (``CelebALandmarkDataset`` with ``buckets``): items gather per
+    shape, and a batch (CPU tensors) is yielded whenever one shape has
+    ``batch_size``, so every batch is shape-homogeneous; with
+    ``drop_last=False`` the partial ones are flushed at the end of each
+    epoch. The same batches, in the same order, as the JAX package's
+    iterator for the same seed: the index order is its
+    ``RandomState(seed).shuffle`` per epoch, items decoded ``num_workers``
+    at a time on threads (the JPEG decode's Huffman stage releases the
+    GIL in the host library). Items that are None are dropped."""
+    import concurrent.futures
+
+    idxs = list(indices) if indices is not None else list(range(len(dataset)))
+    rng = np.random.RandomState(seed)
+    pending: dict = {}
+    epoch = 0
+    with concurrent.futures.ThreadPoolExecutor(max(num_workers, 1)) as pool:
+        while epochs is None or epoch < epochs:
+            order = idxs[:]
+            if shuffle:
+                rng.shuffle(order)
+            for start in range(0, len(order), batch_size):
+                for item in pool.map(dataset.__getitem__, order[start:start + batch_size]):
+                    if item is None:
+                        continue
+                    key = _item_shape_key(item)
+                    pending.setdefault(key, []).append(item)
+                    if len(pending[key]) == batch_size:
+                        yield _collate(pending.pop(key))
+            if not drop_last:
+                for key in list(pending):
+                    yield _collate(pending.pop(key))
+            epoch += 1
 
 
 def stop_worker_server() -> None:

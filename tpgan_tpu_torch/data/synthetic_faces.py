@@ -18,8 +18,9 @@ It renders deterministic cartoon faces with:
 ``generate_gan_protocol`` writes the Multi-PIE layout through
 ``data.prepare`` (``<subject>_01_<camera>_00.png``; camera '051' =
 frontal, the reference's twin derivation at DataAndDataset.py:203-205),
-with PNGs written by ``data.imageio``. The CelebA protocol of the JAX
-module writes JPEGs and waits for the landmark detector's port.
+with PNGs written by ``data.imageio``. ``generate_pretrain_protocol``
+writes the CelebA layout the landmark detector trains on: JPEGs coded by
+``data.imageio.write_jpeg`` as PIL codes them, and the landmark txt.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpgan_tpu_torch.data.imageio import write_png
+from tpgan_tpu_torch.data.imageio import write_jpeg, write_png
 
 # camera-token -> yaw degrees. '051' is the frontal camera (the token the
 # reference swaps in to find the frontal twin, DataAndDataset.py:203-205);
@@ -268,3 +269,42 @@ def generate_gan_protocol(
             paths.append(path)
             lm_strings.append(landmarks68_string(lm5))
     return prepare_dataset(paths, lm_strings, out_root)
+
+
+def generate_pretrain_protocol(
+    out_root: str,
+    num_images: int,
+    sizes: Tuple[int, int] = (160, 320),
+    num_subjects: int = 512,
+    seed: int = 0,
+) -> str:
+    """Render a CelebA-layout corpus: ``img/NNNNNN.jpg`` (quality 92) and
+    ``list_landmarks_celeba.txt`` (2 header lines, then a name and 10
+    integer coordinates per row: left eye, right eye, nose, left and right
+    mouth corner, as ``celeba.parse_celeba_landmarks`` reads them). Each
+    image draws a subject, a yaw in [-60, 60) and a side in ``sizes``
+    from ``RandomState(seed)``. Returns the txt name, relative to
+    ``out_root`` (as ``pretrain.txt_name`` takes it). The same tree as the
+    JAX package's: the same txt, byte for byte, and JPEGs that PIL
+    decodes to the same pixels."""
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(out_root, "img")
+    os.makedirs(img_dir, exist_ok=True)
+    rows = []
+    for i in range(num_images):
+        subject = int(rng.randint(0, num_subjects))
+        yaw = float(rng.uniform(-60, 60))
+        size = int(rng.randint(sizes[0], sizes[1] + 1))
+        img, lm5 = render_face(subject, yaw, size)
+        name = f"{i:06d}.jpg"
+        write_jpeg(os.path.join(img_dir, name), img, quality=92)
+        v = np.round(lm5).astype(int)
+        rows.append(f"{name} {v[0,0]} {v[0,1]} {v[1,0]} {v[1,1]} {v[2,0]} {v[2,1]} "
+                    f"{v[3,0]} {v[3,1]} {v[4,0]} {v[4,1]}")
+    txt_name = "list_landmarks_celeba.txt"
+    with open(os.path.join(out_root, txt_name), "w") as f:
+        f.write(f"{num_images}\n")
+        f.write("image_id lefteye_x lefteye_y righteye_x righteye_y nose_x "
+                "nose_y leftmouth_x leftmouth_y rightmouth_x rightmouth_y\n")
+        f.write("\n".join(rows) + "\n")
+    return txt_name

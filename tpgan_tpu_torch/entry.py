@@ -7,7 +7,10 @@ weights, seeded synthetic batches):
   16 in bfloat16 (f32 master weights), through ``create_gan_state`` +
   ``make_gan_train_step`` as ``tpgan_tpu/train/loop.py`` builds it,
   optionally with the identity-preserving term through a seeded ResNet18
-  embedder."""
+  embedder;
+* :func:`pretrain_entry` — the landmark detector's f32 pretrain step
+  (``train/pretrain.py``) at the config's defaults: the full MobileNetV2
+  + SSD head, 256x256, batch 64."""
 
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from tpgan_tpu_torch.config import make_config
-from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch, synthetic_pretrain_batch
 from tpgan_tpu_torch.models.feature_extract import (
     build_feature_extract_model,
     make_identity_embed_fn,
@@ -28,6 +31,7 @@ from tpgan_tpu_torch.train.gan_trainer import (
     make_gan_train_step,
     make_synthesize_fn,
 )
+from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
 from tpgan_tpu_torch.utils.device import resolve_device
 
 BATCH = 8
@@ -77,3 +81,26 @@ def train_entry(device: Optional[Union[str, torch.device]] = None, batch_size: i
     }
     generator = torch.Generator(device=device).manual_seed(0)
     return step_fn, (state, batch, generator)
+
+
+def pretrain_entry(device: Optional[Union[str, torch.device]] = None,
+                   head_mode: str = "absolute", batch_size: Optional[int] = None):
+    """Returns ``(step_fn, (state, images, labels, generator))``: each
+    ``step_fn(state, images, labels, generator)`` takes one SGD step of
+    the landmark detector and returns ``(state, metrics)``. The full
+    detector (MobileNetV2 has no width knob) with weights from seed 0, in
+    ``head_mode``, f32, at ``pretrain.image_size`` 256 and
+    ``pretrain.batch_size`` 64 (the config's defaults) unless
+    ``batch_size`` says otherwise; the batch is ``synthetic_pretrain_batch``
+    (seed 0) on the device. On ``cuda`` unless ``device`` says otherwise
+    (raises when no GPU is present and none was asked for)."""
+    device = resolve_device(device)
+    cfg = make_config({"pretrain": {"head_mode": head_mode}})
+    p = cfg.pretrain
+    state, model, opt = create_pretrain_state(cfg, seed=0, device=device)
+    step_fn = make_pretrain_step(cfg, model, opt, state.scheduler)
+    batch = synthetic_pretrain_batch(batch_size or p.batch_size, p.image_size, seed=0)
+    images = torch.as_tensor(batch["image"], device=device)
+    labels = torch.as_tensor(batch["label"], device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    return step_fn, (state, images, labels, generator)

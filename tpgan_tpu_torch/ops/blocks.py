@@ -47,8 +47,10 @@ Left out of this port, on purpose:
   shapes, so ``build_generator`` rejects ``G.pad_channel_multiple``.
 * The int8 post-training-quantization hooks (``ops/quant.py``) — a later
   slice of the port.
-* ``bias_init`` and ``pre_activation``: no layer of the port uses them
-  (the detector's SSD head brings the first). ``Conv2d(groups=...)`` is
+* ``pre_activation``: no layer of the port uses it. ``Conv2d`` takes
+  ``bias_init`` (the detector's SSD head and extra layers start their
+  biases at zero); the other layers keep torch's uniform bias.
+  ``Conv2d(groups=...)`` is
   here (the embedders' depthwise convs, ``groups == in_channels``) and,
   as JAX hands its grouped convs to XLA, goes to cuDNN through
   ``F.conv2d(groups=...)``; its fan-in is ``in_channels / groups``.
@@ -124,6 +126,7 @@ class Conv2d(nn.Module):
         kernel_init=None,
         groups: int = 1,
         device=None,
+        bias_init=None,
     ):
         super().__init__()
         kh, kw = _pair(kernel_size)
@@ -140,7 +143,7 @@ class Conv2d(nn.Module):
             nn.Parameter(torch.empty(out_channels, device=device)) if use_bias else None
         )
         self._kernel_init = kernel_init or init_lib.torch_default_conv()
-        self._bias_init = init_lib.uniform_bias(kh * kw * in_channels // groups)
+        self._bias_init = bias_init or init_lib.uniform_bias(kh * kw * in_channels // groups)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

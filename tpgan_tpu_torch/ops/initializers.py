@@ -120,6 +120,13 @@ def normal(std: float) -> Initializer:
     return _normal(std)
 
 
+def zeros(t, generator=None):
+    """All zeros (the SSD head's and the extra layers' conv biases,
+    ``tpgan_tpu/models/mobilenet_v2.py:61-62``)."""
+    with torch.no_grad():
+        return t.zero_()
+
+
 def he_ssd_conv() -> Initializer:
     """MobileNetV2's explicit He re-init of an OIHW conv weight:
     N(0, sqrt(2 / (kh * kw * out))) (reference: MobileNetV2.py:225-233);

@@ -1,19 +1,22 @@
-"""Checkpoints of the GAN state, and the import of reference ``.pth``
-weights — the port of ``tpgan_tpu/train/checkpoint.py``.
+"""Checkpoints of the GAN and the pretrain state, and the import of
+reference ``.pth`` weights — the port of ``tpgan_tpu/train/checkpoint.py``.
 
 A checkpoint is one directory per step, ``<directory>/<step>/state.pt``:
-a ``torch.save`` of the step, both models' ``state_dict`` (parameters and
-BatchNorm statistics), both optimizers' ``state_dict`` and the EMA
-weights, all copied to the host. It is written under a temporary name and
-renamed, so a directory named by a step always holds a whole checkpoint.
+a ``torch.save`` of the step and, for a GAN state, both models'
+``state_dict`` (parameters and BatchNorm statistics), both optimizers'
+``state_dict`` and the EMA weights; for the detector's pretrain state
+(``train.pretrain.PretrainState``), the model's, the optimizer's and the
+learning-rate schedule's ``state_dict``; all copied to the host. It is
+written under a temporary name and renamed, so a directory named by a
+step always holds a whole checkpoint.
 The JAX package's Orbax checkpoints do not load here; a JAX state comes
 across through ``tpgan_tpu_torch.convert.load_jax_gan_state``. One model's
 variables alone (the identity embedder's) are saved in the same layout
 by :func:`save_model_variables`, with ``step`` and ``model`` (its
 ``state_dict``) in place of the train state.
 
-``import_mobilenet_v2_pth`` (``checkpoint.py:173``) comes with the
-detector slice (ROADMAP A10).
+``import_mobilenet_v2_pth`` maps a reference landmark-detector ``.pth``
+onto the port's ``MobileNetV2`` (``tpgan_tpu/train/checkpoint.py:173``).
 """
 
 from __future__ import annotations
@@ -22,11 +25,16 @@ import os
 import shutil
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from tpgan_tpu_torch.train.gan_trainer import GANTrainState
+
+if TYPE_CHECKING:
+    from tpgan_tpu_torch.train.pretrain import PretrainState
+
+State = Union[GANTrainState, "PretrainState"]
 
 CHECKPOINT_FILE = "state.pt"
 
@@ -47,7 +55,14 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-def _snapshot(state: GANTrainState) -> Dict[str, Any]:
+def _snapshot(state: State) -> Dict[str, Any]:
+    if not isinstance(state, GANTrainState):  # the pretrain state
+        return _to_host({
+            "step": int(state.step),
+            "detector": state.model.state_dict(),
+            "opt": state.optimizer.state_dict(),
+            "sched": state.scheduler.state_dict() if state.scheduler is not None else None,
+        })
     return _to_host({
         "step": int(state.step),
         "gen": state.gen.state_dict(),
@@ -84,11 +99,12 @@ _async_lock = threading.Lock()
 
 
 def save_checkpoint(
-    directory: str, step: int, state: GANTrainState, max_to_keep: int = 5,
+    directory: str, step: int, state: State, max_to_keep: int = 5,
     block: bool = True,
 ) -> None:
     """Save ``state`` (a ``GANTrainState``: the step, both models, both
-    optimizers, the EMA weights) as ``directory/<step>``, keeping the
+    optimizers, the EMA weights; or a ``PretrainState``: the step, the
+    detector, its optimizer and schedule) as ``directory/<step>``, keeping the
     newest ``max_to_keep`` steps. Raises ``FileExistsError`` when that
     step is saved already.
 
@@ -150,7 +166,30 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
                          "param_groups": opt.state_dict()["param_groups"]})
 
 
-def _apply(payload: Dict[str, Any], state: GANTrainState, tolerate_ema: bool) -> GANTrainState:
+def _apply_pretrain(payload: Dict[str, Any], state: "PretrainState") -> "PretrainState":
+    if "detector" not in payload:
+        raise ValueError("the checkpoint holds no pretrain state (no detector)")
+    state.model.load_state_dict(payload["detector"], strict=True)
+    _load_optimizer(state.optimizer, payload["opt"])
+    if (payload["sched"] is None) != (state.scheduler is None):
+        raise ValueError("the checkpoint and the state disagree on the learning-rate schedule")
+    if state.scheduler is not None:
+        # the milestones and gamma come from the config; the count and the
+        # rate reached, from the checkpoint
+        sched = payload["sched"]
+        state.scheduler.last_epoch = sched["last_epoch"]
+        state.scheduler._last_lr = list(sched["_last_lr"])
+        for group, lr in zip(state.optimizer.param_groups, sched["_last_lr"]):
+            group["lr"] = lr
+    state.step = int(payload["step"])
+    return state
+
+
+def _apply(payload: Dict[str, Any], state: State, tolerate_ema: bool) -> State:
+    if not isinstance(state, GANTrainState):
+        return _apply_pretrain(payload, state)
+    if "gen" not in payload:
+        raise ValueError("the checkpoint holds no GAN train state")
     has_ema, wants_ema = bool(payload["g_ema"]), bool(state.g_ema_params)
     if has_ema != wants_ema and not tolerate_ema:
         raise ValueError(
@@ -176,12 +215,13 @@ def _apply(payload: Dict[str, Any], state: GANTrainState, tolerate_ema: bool) ->
 
 
 def restore_checkpoint(
-    directory: str, state_like: GANTrainState, step: Optional[int] = None
-) -> GANTrainState:
+    directory: str, state_like: State, step: Optional[int] = None
+) -> State:
     """Restore ``directory/<step>`` (the newest when ``step`` is None)
-    into ``state_like``, in place, and return it. Raises
-    ``FileNotFoundError`` when there is none, and on any layout mismatch
-    (keys, shapes, EMA tracked on one side only)."""
+    into ``state_like`` (a GAN or a pretrain state), in place, and return
+    it. Raises ``FileNotFoundError`` when there is none, and on any
+    layout mismatch (keys, shapes, EMA tracked on one side only, a
+    schedule on one side only)."""
     return _apply(_load(directory, step), state_like, tolerate_ema=False)
 
 
@@ -226,7 +266,7 @@ def restore_model_variables(
     ``ValueError`` for a train-state checkpoint."""
     payload = _load(directory, step)
     if "model" not in payload:
-        raise ValueError(f"{directory} holds a GAN train state, not one model's variables")
+        raise ValueError(f"{directory} holds a train state, not one model's variables")
     model.load_state_dict(payload["model"], strict=True)
     return int(payload["step"])
 
@@ -383,3 +423,46 @@ def import_discriminator_pth(path: str) -> Dict[str, torch.Tensor]:
     params["res4"] = _rb_p(sd, "model.6")
     params["head"] = {"conv": _conv_p(sd, "model.7")}
     return _flatten(params)
+
+
+def _bn_sd(sd, src: str, dst: str) -> Dict[str, torch.Tensor]:
+    out = {f"{dst}.{k}": sd[f"{src}.{k}"]
+           for k in ("weight", "bias", "running_mean", "running_var")}
+    out[f"{dst}.num_batches_tracked"] = sd.get(f"{src}.num_batches_tracked",
+                                               torch.tensor(0, dtype=torch.long))
+    return out
+
+
+def import_mobilenet_v2_pth(path: str) -> Dict[str, torch.Tensor]:
+    """Reference MobileNetV2 landmark-model ``state_dict`` (saved by
+    UtilityMethods.save_model from the model at MobileNetV2.py:122-218)
+    -> the port detector's ``state_dict`` (load with ``strict=True``; the
+    head mode is not in the weights). Layouts carry over as they are;
+    names map as the JAX importer maps them: ``conv1.{0,1}`` -> ``stem``
+    / ``stem_bn``; ``bottlenecks.i.conv.{0,1,3,4,6,7}`` -> ``block{i}``'s
+    ``expand``, ``expand_bn``, ``depthwise``, ``depthwise_bn``,
+    ``project``, ``project_bn``; ``conv2.{0,1}`` -> ``conv2`` /
+    ``conv2_bn``; ``extra_layers.i`` -> ``extra{i}``; ``ssd_head.
+    {location,classification}_layer.j`` -> ``ssd_head.{loc,cls}{j}``."""
+    sd = load_torch_state_dict(path)
+    out = {"stem.weight": sd["conv1.0.weight"], **_bn_sd(sd, "conv1.1", "stem_bn")}
+    i = 0
+    while f"bottlenecks.{i}.conv.0.weight" in sd:
+        base = f"bottlenecks.{i}.conv"
+        for slot, name in ((0, "expand"), (3, "depthwise"), (6, "project")):
+            out[f"block{i}.{name}.weight"] = sd[f"{base}.{slot}.weight"]
+            out.update(_bn_sd(sd, f"{base}.{slot + 1}", f"block{i}.{name}_bn"))
+        i += 1
+    out["conv2.weight"] = sd["conv2.0.weight"]
+    out.update(_bn_sd(sd, "conv2.1", "conv2_bn"))
+    i = 0
+    while f"extra_layers.{i}.weight" in sd:
+        out.update({f"extra{i}.{k}": v for k, v in _layer(sd, f"extra_layers.{i}").items()})
+        i += 1
+    j = 0
+    while f"ssd_head.location_layer.{j}.weight" in sd:
+        for ref, ours in (("location_layer", "loc"), ("classification_layer", "cls")):
+            out.update({f"ssd_head.{ours}{j}.{k}": v
+                        for k, v in _layer(sd, f"ssd_head.{ref}.{j}").items()})
+        j += 1
+    return {k: v.contiguous() for k, v in out.items()}
