@@ -177,15 +177,36 @@ Phases, each of which exits non-zero on failure:
                  also with TF32 off), peak memory, a profile of one step
                  (no port kernel in its trace) and the eval step's
                  images/s. Its launches (none) go on their own line.
+17. frontalize  — full-stack frontalization, uint8 frames to faces: the
+                 main path, ``frontalize_entry()`` (8 frames of 480x640,
+                 the MobileNetV2 + SSD detector at 256 in f32, the
+                 full-size generator in bf16), answers 2 requests, 3 K1
+                 launches each; (a) card against CPU (f32, TF32 off, 2
+                 frames): ``resize`` in each method, ``scale_and_translate``
+                 and the synthesis preprocessing within 1e-5 (nearest
+                 equal), ``detect_lm5`` with TTA, refine and a nose prior on
+                 a detector whose location biases fall in the frame, its
+                 decode picks equal, lm5 within 1e-3 px, scores within
+                 1e-5, the f32 face within 1e-4 of its largest, the bf16
+                 face within 5% of the f32 one; (b) ``make_graphed_
+                 frontalize_fn``'s replays bit-equal to the eager function
+                 in f32 and bf16 on frames other than the capture's, a
+                 replay's trace holding 3 fuse kernels; (c) images/s at
+                 batch 8 and the batch-1 median and p90 latency, eager and
+                 graphed, peak memory, kernels per forward and the
+                 device's idle share, and the graphed
+                 ``make_synthesis_pipeline`` beside phase 13's graphed
+                 synthesis; (d) ``make_full_inference_fn`` once at full
+                 width, finite.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
-phase 14's two loops, phase 15's steps and protocol runs, and phase 16's
-two ``run_pretrain`` runs) is driven
+phase 14's two loops, phase 15's steps and protocol runs, phase 16's
+two ``run_pretrain`` runs, and phase 17's frontalize requests) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
-launches are the wrappers' own, and the profiler traces of phases 11 and 13
-show that the kernels run inside the graphs. Ends with a
+launches are the wrappers' own, and the profiler traces of phases 11, 13
+and 17 show that the kernels run inside the graphs. Ends with a
 ``{"kernels": [...]}`` line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 Imports nothing of JAX; needs one GPU.
@@ -195,6 +216,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import gc
 import itertools
 import json
@@ -322,6 +344,17 @@ DETECTOR_F32_TRAIN_TOL = 5e-4
 DETECTOR_MOVE_REL_L2 = 5e-2
 DETECTOR_STATS_TOL = 1e-4
 DETECTOR_TIMED_STEPS = 10
+# phase 17: full-stack frontalization, frontalize_entry's program (batch 8
+# uint8 frames of 480x640, the detector at 256 in f32, the generator at
+# full size in bf16); the card-against-CPU check on 2 of its frames
+FRONT_REQUESTS = 2
+FRONT_CHECK_BATCH = 2
+FRONT_LM_TOL = 1e-3  # px, card against CPU
+FRONT_SCORE_TOL = 1e-5
+FRONT_F32_TOL = 1e-4  # of the f32 face's largest magnitude, TF32 off
+FRONT_RESAMPLE_TOL = 1e-5  # the resampler and the preprocessing, card against CPU
+FRONT_TIMED = 20  # back-to-back calls per images/s figure
+FRONT_LATENCY = 100  # batch-1 calls, each timed alone (p90: ten beyond it)
 # run_pretrain as cmd_pretrain drives it: 544 training and 64 validation
 # images, validation every 5 steps, 2 epochs then a resume to 3, the
 # learning rate's milestones at epochs 1 and 2
@@ -1348,7 +1381,7 @@ def run_graphed_synthesis(dev, tag):
         z = torch.randn(batch, 64, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
         return inputs, z
 
-    lines = []
+    lines, bf16_rates = [], {}
     for dname in ("bfloat16", "float32"):
         _f32_exact(dname == "float32")
         if dname == "bfloat16":
@@ -1382,6 +1415,7 @@ def run_graphed_synthesis(dev, tag):
                     check_traced(stats, "one graphed forward", {"fuse_parts_kernel": 3})
                     line += ", the trace of one replay holds 3 fuse kernels"
                 rates = {form: bench.measure(fns[form], batch, dev) for form in ("graphed", "eager")}
+                bf16_rates[batch] = rates
                 line += (f", {rates['graphed']:.1f} images/s graphed against {rates['eager']:.1f} "
                          f"eager ({bench.SCAN_LEN} dependent forwards per timed dispatch, best "
                          f"of 3)")
@@ -1390,6 +1424,7 @@ def run_graphed_synthesis(dev, tag):
         torch.cuda.empty_cache()
     _f32_exact(False)
     log(f"graphed synthesis: {'; '.join(lines)} {tag}")
+    return bf16_rates
 
 
 def checksum(t):
@@ -2541,6 +2576,279 @@ def run_detector(dev, tag):
     return rates
 
 
+def in_frame_detector(device, size, seed=0):
+    """The full detector (f32, eval mode) with weights from ``seed`` and
+    its location biases drawn inside a ``size`` frame: its points fall on
+    the image, so the crops, the refine window and the nose vote see real
+    geometry (the seeded head's zero biases put every point in a corner)."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    det = build_detector(make_config(), device, seed=seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, conv in det.ssd_head.named_children():
+            if name.startswith("loc"):
+                bias = torch.empty(conv.bias.shape).uniform_(0.15 * size, 0.85 * size,
+                                                            generator=gen)
+                conv.bias.copy_(bias)
+    return det.eval()
+
+
+def softmax_picks(cls):
+    """Per image and part, the anchor the top-1 decode takes (the argmax
+    over anchors of the part's softmax score, float64 on the host)."""
+    import torch
+
+    return torch.argmax(torch.softmax(cls.double().cpu(), dim=-1), dim=1)[:, :4]
+
+
+def check_frontalize_parity(dev, tag, images):
+    """Phase 17 (a): the resampler, the preprocessing, ``detect_lm5``
+    (TTA, refine, a nose prior) and the f32 frontalize program on the card
+    against the CPU, TF32 off; the bf16 face against the f32 one."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.jit_preprocess import preprocess_for_synthesis
+    from tpgan_tpu_torch.entry import DETECTOR_SIZE
+    from tpgan_tpu_torch.frontalize import detect_lm5, letterbox_batch, make_frontalize_fn
+    from tpgan_tpu_torch.ops.resize import resize, scale_and_translate
+    from tpgan_tpu_torch.train.gan_trainer import build_generator
+    from tpgan_tpu_torch.train.pretrain import fit_nose_prior
+
+    _f32_exact(True)
+    cpu = torch.device("cpu")
+    u8 = images[:FRONT_CHECK_BATCH]
+    x = u8.float() / 255.0
+    gaps = {}
+    for method in ("lanczos3", "linear", "nearest"):
+        got = resize(x, (FRONT_CHECK_BATCH, 128, 128, 3), method).cpu()
+        want = resize(x.cpu(), (FRONT_CHECK_BATCH, 128, 128, 3), method)
+        gaps[method] = float((got - want).abs().max())
+    s, t = torch.tensor([0.4, 2.5]), torch.tensor([[-30.0, 12.5], [-400.0, -700.0]])
+    gaps["scale_and_translate"] = float((scale_and_translate(x, (256, 256), s.to(dev), t.to(dev),
+                                                             "linear").cpu()
+                                         - scale_and_translate(x.cpu(), (256, 256), s, t, "linear"))
+                                        .abs().max())
+    lm68 = torch.from_numpy(np.random.RandomState(3).uniform(100, 400, (FRONT_CHECK_BATCH, 68, 2))
+                            .astype(np.float32))
+    got = preprocess_for_synthesis(u8, lm68.to(dev))
+    want = preprocess_for_synthesis(u8.cpu(), lm68)
+    gaps["preprocess"] = max(float((got[k].cpu() - v).abs().max()) for k, v in want.items())
+    if gaps["nearest"] != 0 or max(gaps.values()) > FRONT_RESAMPLE_TOL:
+        raise AssertionError(f"frontalize: the resampler on the card against the CPU {gaps}")
+
+    det = in_frame_detector(dev, DETECTOR_SIZE)
+    det_cpu = copy.deepcopy(det).to(cpu)
+    prior = fit_nose_prior(np.random.RandomState(4).uniform(60, 200, (256, 4, 2)))
+    opts = dict(detector_size=DETECTOR_SIZE, tta=True, refine=True, nose_prior=prior)
+    boxed, _, _ = letterbox_batch(u8, DETECTOR_SIZE, True)
+    boxed = torch.cat([boxed, torch.flip(boxed, dims=[2])])
+    with torch.inference_mode():
+        picks = [softmax_picks(m(b.permute(0, 3, 1, 2).contiguous())[1])
+                 for m, b in ((det, boxed), (det_cpu, boxed.cpu()))]
+    lm = [detect_lm5(m, im, **opts) for m, im in ((det, u8), (det_cpu, u8.cpu()))]
+    lm_gap = float((lm[0][0].cpu() - lm[1][0]).abs().max())
+    score_gap = float((lm[0][2].cpu() - lm[1][2]).abs().max())
+    on_frame = bool(((lm[1][0] > 0) & (lm[1][0] < torch.tensor([640.0, 480.0]))).all())
+    if (not torch.equal(picks[0], picks[1]) or lm_gap > FRONT_LM_TOL
+            or score_gap > FRONT_SCORE_TOL or not torch.equal(lm[0][1].cpu(), lm[1][1])):
+        raise AssertionError(f"frontalize: detect_lm5 on the card against the CPU: picks equal "
+                             f"{torch.equal(picks[0], picks[1])}, lm5 {lm_gap} px, scores "
+                             f"{score_gap}, valid equal {torch.equal(lm[0][1].cpu(), lm[1][1])}")
+
+    cfg32 = make_config({"compute_dtype": "float32"})
+    gen = build_generator(cfg32, dev, seed=0)
+    gen_cpu = build_generator(cfg32, cpu, seed=0)
+    gen_cpu.load_state_dict(gen.state_dict())
+    z = torch.from_numpy(np.random.RandomState(5).standard_normal((FRONT_CHECK_BATCH, 64))
+                         .astype(np.float32))
+    face = make_frontalize_fn(cfg32, det, gen, **opts)(u8, z)[0]
+    face_cpu = make_frontalize_fn(cfg32, det_cpu, gen_cpu, **opts)(u8.cpu(), z)[0]
+    scale = float(face_cpu.abs().max())
+    face_gap = float((face.cpu() - face_cpu).abs().max())
+    cfg16 = make_config({"compute_dtype": "bfloat16"})
+    face16 = make_frontalize_fn(cfg16, det, gen, **opts)(u8, z)[0]
+    bf16_gap = float((face16.float() - face).abs().max())
+    if face_gap > FRONT_F32_TOL * scale or bf16_gap > BF16_REL_DIFF * scale:
+        raise AssertionError(f"frontalize: the face on the card against the CPU {face_gap} "
+                             f"(limit {FRONT_F32_TOL} x {scale}); bf16 against f32 {bf16_gap}")
+    _f32_exact(False)
+    log(f"frontalize (a): card against CPU, f32, TF32 off, {FRONT_CHECK_BATCH} frames of 480x640: "
+        f"resampler and preprocessing max|diff| {gaps} (limit {FRONT_RESAMPLE_TOL}, nearest 0); "
+        f"detect_lm5 (TTA, refine, nose prior) decode picks equal "
+        f"({int(picks[0].numel())} part x image), lm5 {lm_gap:.3e} px (limit {FRONT_LM_TOL}), "
+        f"scores {score_gap:.3e}, points on the frames {on_frame}; face {face_gap:.3e} of max "
+        f"{scale:.4f} (limit {FRONT_F32_TOL:.0e} x max); bf16 face against f32 {bf16_gap:.4f} "
+        f"(limit {BF16_REL_DIFF:.0%} of max) {tag}")
+    del gen, gen_cpu, det_cpu
+    return det
+
+
+def time_calls(fn, args, calls):
+    """Seconds per call of ``fn(*args)``, ``calls`` back to back after two
+    warm calls, one synchronise at the end (host clock)."""
+    import torch
+
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls
+
+
+def latencies(fn, args, samples):
+    """(median, the highest percentile with ten samples beyond it, its
+    name) of ``samples`` calls each timed alone, in ms."""
+    import torch
+
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    hi = samples - 11
+    return statistics.median(lat), lat[hi], f"p{round(100 * (hi + 1) / samples)}"
+
+
+def run_frontalize(dev, tag, synth_rates):
+    """Phase 17: full-stack frontalization. The main path first (counts
+    reset just before, read just after): ``frontalize_entry()``'s eager
+    program answers FRONT_REQUESTS requests of 8 uint8 frames; then (a)
+    card against CPU, (b) the graph against eager and a replay's trace,
+    (c) speed and memory, (d) ``make_full_inference_fn`` once. Returns the
+    main path's launches."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch import api
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.jit_preprocess import make_synthesis_pipeline
+    from tpgan_tpu_torch.entry import DETECTOR_SIZE, frames, frontalize_entry
+    from tpgan_tpu_torch.frontalize import make_frontalize_fn, make_graphed_frontalize_fn
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.train.gan_trainer import build_generator, make_synthesize_fn
+
+    start = time.perf_counter()
+    fn, (images, z) = frontalize_entry()
+    kernels.reset_launch_counts()
+    outs = [fn(images, z) for _ in range(FRONT_REQUESTS)]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {**dict.fromkeys(launches, 0), "fuse_parts": 3 * FRONT_REQUESTS}
+    b = images.shape[0]
+    for fake, lm5, scores in outs:
+        if (fake.shape != (b, 128, 128, 3) or fake.dtype != torch.bfloat16
+                or lm5.shape != (b, 5, 2) or scores.shape != (b, 4)
+                or not all(bool(torch.isfinite(t.float()).all()) for t in (fake, lm5, scores))):
+            raise AssertionError(f"frontalize_entry gave {tuple(fake.shape)} {fake.dtype}, lm5 "
+                                 f"{tuple(lm5.shape)}, scores {tuple(scores.shape)} or "
+                                 "non-finite values")
+    if launches != want:
+        raise AssertionError(f"frontalize launches {launches}, expected {want}")
+    log(f"frontalize: frontalize_entry() answered {FRONT_REQUESTS} requests of {b} uint8 frames "
+        f"of 480x640 (detector 256 f32, generator full size bf16); launches {launches} {tag}")
+    del fn, outs
+
+    # (a) card against CPU
+    det = check_frontalize_parity(dev, tag, images)
+
+    # (b) the graph: replays bit-equal to eager, f32 and bf16; a replay's trace
+    other = torch.as_tensor(frames(b, seed=9), device=dev)
+    forms = {}
+    for dname in ("float32", "bfloat16"):
+        _f32_exact(dname == "float32")
+        cfg = make_config({"compute_dtype": dname})
+        gen = build_generator(cfg, dev, seed=0)
+        eager = make_frontalize_fn(cfg, det, gen, detector_size=DETECTOR_SIZE)
+        graphed = make_graphed_frontalize_fn(cfg, det, gen, detector_size=DETECTOR_SIZE)
+        graphed(other, z)  # the capture, on frames of its own
+        kernels.reset_launch_counts()
+        got = graphed(images, z)
+        torch.cuda.synchronize()
+        replay_launches = sum(kernels.launch_counts().values())
+        wanted = eager(images, z)
+        record = [r["fuse_parts"] for r in graphed.launches().values()]
+        if (not all(torch.equal(g, w) for g, w in zip(got, wanted)) or replay_launches
+                or record != [3]):
+            gaps = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, wanted)]
+            raise AssertionError(f"frontalize {dname}: graphed against eager max|diff| {gaps}; "
+                                 f"wrapper launches over a replay {replay_launches}; the "
+                                 f"capture's record {record}")
+        forms[dname] = (eager, graphed)
+        if dname == "float32":
+            del eager, graphed, gen
+            torch.cuda.empty_cache()
+    _f32_exact(False)
+    eager, graphed = forms.pop("bfloat16")
+    names = {"fuse_parts": ["fuse_parts_kernel"]}
+    stats = profile(lambda: graphed(images, z), 1, f"graphed bf16 frontalize batch {b}",
+                    "forward", tag, names)
+    check_traced(stats, "one graphed frontalize", {"fuse_parts_kernel": 3})
+    log(f"frontalize (b): graphed == eager in f32 and bf16 on frames other than the capture's; "
+        f"the trace of one replay holds 3 fuse kernels, the wrappers launched none {tag}")
+
+    # (c) speed and memory: batch 8 images/s, batch 1 latency, the pipeline
+    rows = {}
+    for form, f in (("eager", eager), ("graphed", graphed)):
+        torch.cuda.reset_peak_memory_stats()
+        dt = time_calls(f, (images, z), FRONT_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile(lambda: f(images, z), 3, f"{form} bf16 frontalize batch {b}", "forward",
+                       tag, names)
+        med, hi, hi_name = latencies(f, (images[:1], z[:1]), FRONT_LATENCY)
+        rows[form] = (b / dt, med, hi, peak, prof)
+    cfg16 = make_config({"compute_dtype": "bfloat16"})
+    gen16 = build_generator(cfg16, dev, seed=0)
+    pipeline = make_synthesis_pipeline(make_synthesize_fn(cfg16, gen16))
+    lm68 = torch.from_numpy(np.random.RandomState(6).uniform(150, 350, (b, 68, 2))
+                            .astype(np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    pipe_rate = b / time_calls(pipeline, (images, lm68, z), FRONT_TIMED)
+    pipe_peak = torch.cuda.max_memory_allocated() / 2**30
+    pipe_prof = profile(lambda: pipeline(images, lm68, z), 3, f"graphed synthesis pipeline batch "
+                        f"{b}", "forward", tag, names)
+    parts = []
+    for form, (rate, med, hi, peak, prof) in rows.items():
+        busy = "not measured" if prof is None else (
+            f"{prof['kernels']:.0f} kernels/forward, device idle {prof['idle']:.0%}")
+        parts.append(f"{form} {rate:.1f} images/s at batch {b}, batch 1 latency median "
+                     f"{med:.2f} ms {hi_name} {hi:.2f} ms, peak {peak:.2f} GiB, {busy}")
+    busy = "not measured" if pipe_prof is None else (
+        f"{pipe_prof['kernels']:.0f} kernels/forward, device idle {pipe_prof['idle']:.0%}")
+    log(f"frontalize (c): {'; '.join(parts)}; make_synthesis_pipeline graphed (uint8 frames + "
+        f"68 landmarks) {pipe_rate:.1f} images/s at batch {b}, peak {pipe_peak:.2f} GiB, {busy}; "
+        f"phase 13's graphed synthesis (patches given) {synth_rates[BATCH]['graphed']:.1f} "
+        f"images/s at batch {BATCH} {tag}")
+    del eager, graphed, pipeline, forms
+
+    # (d) make_full_inference_fn once, float frames in [0, 1] as it expects
+    infer = api.make_full_inference_fn(cfg16, gen16, det, detector_input_size=DETECTOR_SIZE)
+    out = infer(images.float() / 255.0, z)
+    torch.cuda.synchronize()
+    if out.shape != (b, 128, 128, 3) or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"make_full_inference_fn gave {tuple(out.shape)} or non-finite values")
+    log(f"frontalize (d): make_full_inference_fn at full width, batch {b}: "
+        f"{tuple(out.shape)} {out.dtype}, finite; phase 17 took "
+        f"{time.perf_counter() - start:.1f} s {tag}")
+    del infer, gen16, det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -2601,7 +2909,8 @@ def profile(fn, iters, what, unit, tag, names, before=None):
         m = TRACE_KERNELS.search(e.name)
         if m:
             traced[m.group(1)] = traced.get(m.group(1), 0) + 1
-    return {"busy_ms": busy_us / iters / 1e3, "kernels": len(kern) / iters, "traced": traced}
+    return {"busy_ms": busy_us / iters / 1e3, "kernels": len(kern) / iters, "traced": traced,
+            "idle": 1 - busy_us / wall_us}
 
 
 def check_traced(stats, what, want):
@@ -2794,7 +3103,7 @@ def main() -> int:
     run_multi_step_f32(dev)
     graphed_rates = time_graphed_step(dev, tag, train_rates)
     run_options(dev, tag, train_rates[TRAIN_BATCH][1])
-    run_graphed_synthesis(dev, tag)
+    synth_rates = run_graphed_synthesis(dev, tag)
 
     # ---- 14. data: the loop fed from files, shards and device memory ----
     torch.cuda.empty_cache()
@@ -2809,6 +3118,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_detector(dev, tag)
+
+    # ---- 17. full-stack frontalization: uint8 frames to faces ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    front_launches = run_frontalize(dev, tag, synth_rates)
 
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
@@ -2830,9 +3144,11 @@ def main() -> int:
         "replaces": replaces,
         # wrapper launches on the main paths: serve (4 requests) + train
         # (5 steps) + the loop's eager calls (2 captures' warm-up steps and
-        # 3 samples' forwards); the loop's graph replays run no wrapper (the
-        # traces of phases 11 and 13 show their kernels)
-        "launches": serve_launches[name] + train_launches[name] + loop_launches[name],
+        # 3 samples' forwards) + frontalize (2 requests); the loop's graph
+        # replays run no wrapper (the traces of phases 11, 13 and 17 show
+        # their kernels)
+        "launches": (serve_launches[name] + train_launches[name] + loop_launches[name]
+                     + front_launches[name]),
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",
@@ -2852,6 +3168,9 @@ def main() -> int:
         "bound_by": conv_row["bound_by"],
         "library_ms": conv_row["cudnn_us"] / 1e3,
     })
+    log("launches by path: " + "; ".join(
+        f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "
+        f"{loop_launches[name]}, frontalize {front_launches[name]}" for name in spec))
     log(json.dumps(kernel_line))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {

@@ -164,10 +164,22 @@ def test_residual_block_rejects_stale_identity_shortcut(kw):
         tb.ResidualBlock(4, **kw)
 
 
-def test_resize_conv_rejects_fractional_ratio():
-    block = tb.DeconvBlock(2, 2, 4, 2, 1, 1, mode="resize_conv")  # 3 -> 7
-    with pytest.raises(ValueError, match="integer upsampling ratio"):
-        block(torch.zeros(1, 2, 3, 3))
+@pytest.mark.parametrize(
+    "k,s,p,op,hw,out_hw",
+    [(4, 2, 1, 1, (3, 3), (7, 7)),  # 3 -> 7 on both axes
+     ((4, 3), (2, 1), 1, (1, 0), (3, 5), (7, 5))],  # 3 -> 7 rows, 5 -> 5 columns
+    ids=["both_fractional", "rows_fractional"],
+)
+def test_resize_conv_fractional_ratio_matches_jax(k, s, p, op, hw, out_hw):
+    """A ratio that is not an integer takes JAX's nearest resize
+    (tpgan_tpu/ops/blocks.py:587-590) on both axes, on converted weights."""
+    got, want = _run(
+        jb.DeconvBlock(2, 3, k, s, p, op, "kaiming", RELU, mode="resize_conv"),
+        tb.DeconvBlock(2, 3, k, s, p, op, "kaiming", RELU, mode="resize_conv"),
+        _x(2, *hw, 2, seed=7),
+    )
+    assert got.shape == want.shape == (2, *out_hw, 3)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 # (JAX initializer, port initializer, JAX shape, port shape): the same

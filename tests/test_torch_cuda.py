@@ -890,3 +890,111 @@ def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
             base, scale = k[:-len("running_var")], float(w.abs().max())
             for stat in ("running_mean", "running_var"):
                 assert float((gsd[base + stat] - csd[base + stat]).abs().max()) <= 1e-4 * scale, k
+
+
+# ---- full-stack frontalization on the card ------------------------------
+
+def _in_frame_detector(device, size, seed=0, head_mode="absolute"):
+    """The full detector with weights from ``seed`` and its location
+    biases drawn inside a ``size`` frame for the absolute head, so its
+    points fall on the image (its seeded zero biases put every point in a
+    corner; the anchor head's put each on its anchor's centre)."""
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    det = build_detector(make_config({"pretrain": {"head_mode": head_mode}}), device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, conv in det.ssd_head.named_children():
+            if name.startswith("loc") and head_mode == "absolute":
+                conv.bias.uniform_(0.15 * size, 0.85 * size, generator=gen)
+    return det.eval()
+
+
+def _face_frames(b, h, w, seed=0):
+    from tpgan_tpu_torch.data.synthetic_faces import render_face
+
+    rng = np.random.RandomState(seed)
+    out = rng.randint(60, 160, (b, h, w, 3)).astype(np.uint8)
+    for i in range(b):
+        face, _ = render_face(i, float(rng.uniform(-40, 40)), min(h, w) - 10)
+        out[i, 5:5 + face.shape[0], 5:5 + face.shape[1]] = face
+    return out
+
+
+@pytest.mark.parametrize("method", ["lanczos3", "linear", "nearest"])
+def test_resampler_on_the_card_matches_the_cpu(cuda, method):
+    """resize, the batched scale_and_translate and the whole synthesis
+    preprocessing on the card against the CPU, f32 with TF32 off: within
+    1e-5 (the matmuls sum in other orders), nearest and the uint8 decode
+    bit for bit."""
+    from tpgan_tpu_torch.data.jit_preprocess import preprocess_for_synthesis
+    from tpgan_tpu_torch.ops.resize import resize, scale_and_translate
+
+    _f32_exact()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 480, 640, 3)).astype(np.float32))
+    got, want = resize(x.to(cuda), (2, 128, 96, 3), method).cpu(), resize(x, (2, 128, 96, 3), method)
+    if method == "nearest":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+    s = torch.tensor([0.4, 2.5])
+    t = torch.tensor([[-30.0, 12.5], [-400.0, -700.0]])
+    got = scale_and_translate(x.to(cuda), (256, 256), s.to(cuda), t.to(cuda), "linear").cpu()
+    assert float((got - scale_and_translate(x, (256, 256), s, t, "linear")).abs().max()) <= 1e-5
+    imgs = torch.from_numpy((rng.rand(2, 480, 640, 3) * 255).astype(np.uint8))
+    lm68 = torch.from_numpy(rng.uniform(100, 400, (2, 68, 2)).astype(np.float32))
+    got = preprocess_for_synthesis(imgs.to(cuda), lm68.to(cuda))
+    want = preprocess_for_synthesis(imgs, lm68)
+    for k, v in want.items():
+        assert float((got[k].cpu() - v).abs().max()) <= 1e-5, k
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("head_mode", ["absolute", "anchor_offset"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_frontalize_equals_eager(cuda, dtype, head_mode):
+    """The whole program, uint8 frames to (fake, lm5, scores), captured as
+    one CUDA graph per shape: its replays bit-equal to the eager function
+    on frames other than the capture's, with TTA, refine and a nose prior;
+    the eager forward launches K1 three times, a replay none (the
+    capture's record holds the 3). Both head modes: the anchor head's
+    grid and clip bounds are made on the device inside the capture."""
+    from tpgan_tpu_torch.frontalize import make_frontalize_fn, make_graphed_frontalize_fn
+    from tpgan_tpu_torch.train.pretrain import fit_nose_prior
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype=dtype))
+    det = _in_frame_detector(cuda, 128, head_mode=head_mode)
+    gen = build_generator(cfg, cuda, seed=0)
+    prior = fit_nose_prior(np.random.RandomState(3).uniform(20, 100, (64, 4, 2)))
+    opts = dict(detector_size=128, tta=True, refine=True, nose_prior=prior)
+    eager = make_frontalize_fn(cfg, det, gen, **opts)
+    graphed = make_graphed_frontalize_fn(cfg, det, gen, **opts)
+    z = np.random.RandomState(4).standard_normal((2, cfg.G.zdim)).astype(np.float32)
+    graphed(_face_frames(2, 150, 110, seed=1), z)  # the capture
+    frames = _face_frames(2, 150, 110, seed=2)
+    kernels.reset_launch_counts()
+    got = graphed(frames, z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fuse_parts"] == 0
+    want = eager(frames, z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fuse_parts"] == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert [r["fuse_parts"] for r in graphed.launches().values()] == [3]
+    torch.backends.cudnn.deterministic = False
+
+
+def test_frontalize_entry_launches_k1_three_times_per_forward(cuda):
+    from tpgan_tpu_torch.entry import frontalize_entry
+
+    fn, (images, z) = frontalize_entry(batch_size=2)
+    kernels.reset_launch_counts()
+    fake, lm5, scores = fn(images, z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fuse_parts"] == 3
+    assert fake.shape == (2, 128, 128, 3) and fake.dtype == torch.bfloat16
+    assert torch.isfinite(fake.float()).all() and torch.isfinite(lm5).all()
+    assert lm5.shape == (2, 5, 2) and scores.shape == (2, 4)

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from tpgan_tpu_torch.config import make_config
-from tpgan_tpu_torch.entry import entry, pretrain_entry, train_entry
+from tpgan_tpu_torch.entry import entry, frontalize_entry, pretrain_entry, train_entry
 from tpgan_tpu_torch.examples import conv_ab
+from tpgan_tpu_torch.frontalize import make_frontalize_fn, make_graphed_frontalize_fn
+from tpgan_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from tpgan_tpu_torch.train.feature_extract import (
     create_feature_extract_state,
     run_feature_extract_training,
@@ -26,6 +28,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the full-stack modules: the resampler, the preprocessing, the API and
+# frontalize (scanned with the rest; listed so a move shows here)
+FULL_STACK = ("ops/resize.py", "data/jit_preprocess.py", "api.py", "frontalize.py")
 # PIL: the card's machine is not promised an imaging package
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpgan_tpu", "PIL")
 
@@ -42,6 +47,12 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_full_stack_modules_are_scanned():
+    scanned = {p.relative_to(ROOT / "tpgan_tpu_torch").as_posix() for p in PORT_FILES
+               if ROOT / "tpgan_tpu_torch" in p.parents}
+    assert set(FULL_STACK) <= scanned
 
 
 def test_importing_the_port_loads_no_jax():
@@ -96,6 +107,22 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         create_pretrain_state(make_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_pretrain(make_config(), iter(()), steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        frontalize_entry()
+
+
+def test_frontalize_runs_where_its_modules_are():
+    """make_frontalize_fn picks no device: it runs where the detector and
+    the generator are, and refuses two devices; the graphed form is the
+    eager function off the card."""
+    cfg = make_config({"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
+                       "compute_dtype": "float32"})
+    gen = build_generator(cfg, "cpu")
+    with pytest.raises(ValueError, match="one device"):
+        make_frontalize_fn(cfg, MobileNetV2(device="meta"), gen)
+    fn = make_frontalize_fn(cfg, MobileNetV2(device="cpu"), gen)
+    assert fn.device == torch.device("cpu")
+    assert make_graphed_frontalize_fn(cfg, MobileNetV2(device="cpu"), gen).device == fn.device
 
 
 def test_padded_channel_layout_is_refused():

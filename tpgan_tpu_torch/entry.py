@@ -10,7 +10,11 @@ weights, seeded synthetic batches):
   embedder;
 * :func:`pretrain_entry` — the landmark detector's f32 pretrain step
   (``train/pretrain.py``) at the config's defaults: the full MobileNetV2
-  + SSD head, 256x256, batch 64."""
+  + SSD head, 256x256, batch 64;
+* :func:`frontalize_entry` — full-stack frontalization
+  (``frontalize.make_frontalize_fn``), raw uint8 frames to frontal faces:
+  the full detector at 256 in f32 and the full-size generator in bf16,
+  a batch of 8 frames of 480x640."""
 
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 
 from tpgan_tpu_torch.config import make_config
 from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch, synthetic_pretrain_batch
+from tpgan_tpu_torch.data.synthetic_faces import render_face
+from tpgan_tpu_torch.frontalize import make_frontalize_fn
 from tpgan_tpu_torch.models.feature_extract import (
     build_feature_extract_model,
     make_identity_embed_fn,
@@ -31,12 +37,15 @@ from tpgan_tpu_torch.train.gan_trainer import (
     make_gan_train_step,
     make_synthesize_fn,
 )
-from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+from tpgan_tpu_torch.train.pretrain import build_detector, create_pretrain_state, make_pretrain_step
 from tpgan_tpu_torch.utils.device import resolve_device
 
 BATCH = 8
 TRAIN_BATCH = 16
 PATCH_KEYS = ("img", "left_eye", "right_eye", "nose", "mouth")
+FRONTALIZE_BATCH = 8
+FRAME_HW = (480, 640)  # Multi-PIE's capture size
+DETECTOR_SIZE = 256
 
 
 def entry(device: Optional[Union[str, torch.device]] = None):
@@ -104,3 +113,42 @@ def pretrain_entry(device: Optional[Union[str, torch.device]] = None,
     labels = torch.as_tensor(batch["label"], device=device)
     generator = torch.Generator(device=device).manual_seed(0)
     return step_fn, (state, images, labels, generator)
+
+
+def frames(batch: int, seed: int = 0, hw=FRAME_HW) -> np.ndarray:
+    """``batch`` uint8 RGB frames (B, H, W, 3) from ``seed``: a noisy
+    grey background with one rendered face each (``render_face``: a
+    seeded subject, yaw within 45 degrees, 160-280 px) at a seeded place
+    in the frame."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    out = np.clip(rng.normal(110.0, 25.0, (batch, h, w, 3)), 0, 255).astype(np.uint8)
+    for i in range(batch):
+        size = int(rng.randint(160, min(280, h, w) + 1))
+        face, _lm5 = render_face(int(rng.randint(0, 1000)), float(rng.uniform(-45, 45)), size)
+        top, left = rng.randint(0, h - size + 1), rng.randint(0, w - size + 1)
+        out[i, top:top + size, left:left + size] = face
+    return out
+
+
+def frontalize_entry(device: Optional[Union[str, torch.device]] = None,
+                     batch_size: int = FRONTALIZE_BATCH):
+    """Returns ``(fn, (images, z))``: ``fn(images, z)`` is ``(fake, lm5,
+    scores)``, full-stack frontalization of ``batch_size`` (8) uint8
+    frames of 480x640 (:func:`frames`, seed 0) with z from seed 1: the
+    MobileNetV2 + SSD detector (``absolute`` head; it has no width knob)
+    at 256 in f32 eval mode, the generator at the config's defaults (fm
+    1.0, ``deconv``) in bf16, both with weights from seed 0, through
+    ``make_frontalize_fn`` with its defaults (upscaling letterbox, no TTA,
+    no refine, no nose prior: the CLI's). On ``cuda`` unless ``device``
+    says otherwise (raises when no GPU is present and none was asked
+    for)."""
+    device = resolve_device(device)
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    detector = build_detector(cfg, device, seed=0)
+    gen = build_generator(cfg, device, seed=0)
+    fn = make_frontalize_fn(cfg, detector, gen, detector_size=DETECTOR_SIZE)
+    images = torch.as_tensor(frames(batch_size, seed=0), device=device)
+    z = torch.as_tensor(np.random.RandomState(1).standard_normal(
+        (batch_size, cfg.G.zdim)).astype(np.float32), device=device)
+    return fn, (images, z)

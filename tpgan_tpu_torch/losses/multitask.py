@@ -41,12 +41,19 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _bound(v, x: torch.Tensor) -> torch.Tensor:
+    """A clip bound in ``x``'s dtype on its device; a Python number by a
+    fill kernel, not a copy from the host (a CUDA-graph capture of the
+    anchor head's forward makes its bounds)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=x.dtype, device=x.device)
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` = ``minimum(maximum(x, lo), hi)``, with its
     gradient of 0.5 at a tie on either corner."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return torch.minimum(torch.maximum(x, _bound(lo, x)), _bound(hi, x))
 
 
 def landmark_assignment(

@@ -113,7 +113,13 @@ def _scale_grid(ih: int, iw: int, fh: int, fw: int, device=None):
     cx = (torch.arange(fw, dtype=torch.float32, device=device) + 0.5) * sx
     cy = (torch.arange(fh, dtype=torch.float32, device=device) + 0.5) * sy
     grid = torch.stack(torch.broadcast_tensors(cx[None, :], cy[:, None]), dim=-1)
-    return grid, torch.tensor([sx, sy], dtype=torch.float32, device=device)
+    return grid, _pair_f32(sx, sy, device)
+
+
+def _pair_f32(x: float, y: float, device=None) -> torch.Tensor:
+    """A float32 (x, y) pair on ``device`` from fill kernels: no copy from
+    the host, so a CUDA-graph capture of the forward can make it."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in (x, y)])
 
 
 class SSDHead(nn.Module):
@@ -151,7 +157,7 @@ class SSDHead(nn.Module):
                 centres, stride = _scale_grid(ih, iw, fh, fw, feat.device)
                 raw = loc.float().reshape(b, fh, fw, anchors, 2)
                 decoded = centres[None, :, :, None, :] + raw * stride
-                hi = torch.tensor([iw, ih], dtype=torch.float32, device=feat.device)
+                hi = _pair_f32(iw, ih, feat.device)
                 loc = clip(decoded, 0.0, hi).reshape(b, -1, 2)
             else:
                 loc = torch.maximum(loc.reshape(b, -1, 2), zero.to(loc.dtype))

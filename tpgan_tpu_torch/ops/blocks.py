@@ -74,6 +74,7 @@ from tpgan_tpu_torch.ops.activations import (
     is_saturating,
     negative_slope,
 )
+from tpgan_tpu_torch.ops.resize import resize
 
 Padding = Union[int, Tuple[int, int], Tuple[int, int, int, int]]
 
@@ -290,7 +291,8 @@ class DeconvBlock(nn.Module):
 
     ``mode``: ``"deconv"`` (reference parity) and ``"subpixel"`` are the same
     transposed conv with the same parameters (``deconv``); ``"resize_conv"``
-    is a nearest repeat to the transposed conv's output size followed by a
+    is a nearest repeat to the transposed conv's output size (a nearest
+    resize, ``ops.resize``, where a ratio is not an integer) followed by a
     3x3 stride-1 conv (parameters ``conv``) — the JAX block's
     checkerboard-artifact fix."""
 
@@ -338,14 +340,13 @@ class DeconvBlock(nn.Module):
     def _upsample(self, h: torch.Tensor) -> torch.Tensor:
         if self.mode != "resize_conv":
             return self.deconv(h)
-        for dim, (k, s, p, op) in zip((2, 3), self._geom):
-            n = h.shape[dim]
-            out = (n - 1) * s - 2 * p + k + op
-            if out % n:
-                raise ValueError(
-                    f"resize_conv needs an integer upsampling ratio, got {n}->{out}"
-                )
-            h = h.repeat_interleave(out // n, dim=dim)
+        out_hw = [(n - 1) * s - 2 * p + k + op
+                  for n, (k, s, p, op) in zip(h.shape[2:], self._geom)]
+        if all(out % n == 0 for n, out in zip(h.shape[2:], out_hw)):
+            for dim, (n, out) in enumerate(zip(h.shape[2:], out_hw), start=2):
+                h = h.repeat_interleave(out // n, dim=dim)
+        else:  # a fractional ratio: JAX's nearest resize (tpgan_tpu/ops/blocks.py:587-590)
+            h = resize(h, (*h.shape[:2], *out_hw), "nearest")
         return self.conv(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -631,9 +631,10 @@ def make_synthesize_fn(
     (``img``, ``left_eye``, ``right_eye``, ``nose``, ``mouth``; tensors or
     numpy arrays) and ``z`` (B, zdim), and returns ``img128_fake`` as an
     NHWC (B, 128, 128, 3) tensor in ``cfg.compute_dtype`` on ``gen``'s
-    device. Eval mode, no dropout, no autograd. When the compute dtype is
-    not float32 the weights are cast once, into a copy made here: later
-    changes to ``gen`` do not reach the returned function.
+    device (``synthesize.device``). Eval mode, no dropout, no autograd.
+    When the compute dtype is not float32 the weights are cast once, into
+    a copy made here: later changes to ``gen`` do not reach the returned
+    function.
     """
     dtype = _DTYPES[cfg.compute_dtype]
     device = next(gen.parameters()).device
@@ -652,6 +653,7 @@ def make_synthesize_fn(
         )
         return out.img128_fake.permute(0, 2, 3, 1).contiguous()
 
+    synthesize.device = device  # where it runs: make_synthesis_pipeline's inputs go there
     return synthesize
 
 
@@ -670,28 +672,16 @@ def make_graphed_synthesize_fn(
     plain form). The counterpart of the JAX bench's jitted ``lax.scan``
     of synthesis forwards (``bench.py:85-164``)."""
     synthesize = make_synthesize_fn(cfg, gen)
-    device = next(gen.parameters()).device
-    if device.type != "cuda":
+    if synthesize.device.type != "cuda":
         return synthesize
-    captured: Dict[tuple, tuple] = {}
+    replay = graphs.graphed_per_shape(
+        lambda *args: synthesize(dict(zip(SYNTHESIS_KEYS, args[:-1])), args[-1]),
+        synthesize.device, GRAPH_WARMUP_CALLS)
 
-    @torch.inference_mode()
     def graphed(batch: Mapping[str, ArrayLike], z: ArrayLike) -> torch.Tensor:
-        args = [torch.as_tensor(batch[k]) for k in SYNTHESIS_KEYS] + [torch.as_tensor(z)]
-        key = tuple((tuple(a.shape), a.dtype) for a in args)
-        if key not in captured:
-            static = [a.to(device, copy=True) for a in args]
-            static_batch = dict(zip(SYNTHESIS_KEYS, static))
-            graph, out, launches = graphs.capture(
-                lambda: synthesize(static_batch, static[-1]), GRAPH_WARMUP_CALLS)
-            captured[key] = (static, graph, out, launches)
-        static, graph, out, launches = captured[key]
-        for buf, a in zip(static, args):
-            buf.copy_(a, non_blocking=True)
-        graph.replay()
-        return out.clone()
+        return replay(*(batch[k] for k in SYNTHESIS_KEYS), z)
 
     # {batch size: the launches of one replay}, for each captured shape
-    graphed.launches = lambda: {static[0].shape[0]: launches.per_replay
-                                for static, _graph, _out, launches in captured.values()}
+    graphed.launches = lambda: {key[0][0][0]: launches
+                                for key, launches in replay.launches().items()}
     return graphed

@@ -2,11 +2,14 @@
 ``lax.scan``: a captured graph replays a whole train step or synthesis
 forward with one host call, where the eager form dispatches each of its
 thousands of kernels from Python. Used by
-``train/gan_trainer.make_multi_step`` and ``make_graphed_synthesize_fn``."""
+``train/gan_trainer.make_multi_step``, and through :func:`graphed_per_shape`
+(a graph per input shape) by ``make_graphed_synthesize_fn``,
+``data/jit_preprocess.make_synthesis_pipeline`` and
+``frontalize.make_graphed_frontalize_fn``."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, TypeVar
+from typing import Callable, Dict, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
@@ -54,3 +57,37 @@ def capture(
             torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn()
     return graph, out, launches
+
+
+def graphed_per_shape(fn: Callable[..., T], device: torch.device, warmup: int = 2
+                      ) -> Callable[..., T]:
+    """``fn(*tensors)`` as CUDA-graph replays on ``device``, one graph per
+    shape and dtype of the arguments: captured by :func:`capture` at the
+    first call of each (after ``warmup`` calls, where cuDNN and cuBLAS
+    pick their algorithms and workspaces), then each call copies the
+    arguments (tensors or numpy arrays) into that graph's buffers,
+    replays it and returns copies of its outputs, a tensor or a tuple of
+    tensors. A failed capture raises; nothing falls back to eager calls.
+    ``graphed.launches()`` is {argument shapes and dtypes: the port's
+    kernel launches of one replay} for each captured graph."""
+    captured: Dict[tuple, tuple] = {}
+
+    @torch.inference_mode()
+    def graphed(*args):
+        args = [torch.as_tensor(a) for a in args]
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in captured:
+            static = [a.to(device, copy=True) for a in args]
+            graph, out, launches = capture(lambda: fn(*static), warmup)
+            captured[key] = (static, graph, out, launches)
+        static, graph, out, _launches = captured[key]
+        for buf, a in zip(static, args):
+            buf.copy_(a, non_blocking=True)
+        graph.replay()
+        if isinstance(out, tuple):
+            return tuple(o.clone() for o in out)
+        return out.clone()
+
+    graphed.launches = lambda: {key: launches.per_replay
+                                for key, (_s, _g, _o, launches) in captured.items()}
+    return graphed

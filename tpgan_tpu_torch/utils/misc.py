@@ -8,7 +8,8 @@ from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from tpgan_tpu_torch.ops.resize import resize
 
 
 def scale_channels(channels: Sequence[int], multiplier: float) -> List[int]:
@@ -45,15 +46,24 @@ def five_landmarks_from_68(landmarks68: np.ndarray) -> np.ndarray:
 
 def resize_image(x: torch.Tensor, size: Union[int, Tuple[int, int]]) -> torch.Tensor:
     """Bilinear resize of an NHWC or HWC float tensor — the port of the
-    JAX ``resize_image`` (``jax.image.resize(method="bilinear")``).
-    ``size`` is (height, width) or one int for a square. JAX's resize
-    antialiases when it shrinks (its triangle kernel widens by the scale),
-    so this one passes ``antialias=True``; without it, 128 → 64 differs
-    by up to 0.6."""
+    JAX ``resize_image`` (``jax.image.resize(method="bilinear")``, which
+    antialiases when it shrinks), through the port's copy of that
+    resampler, ``ops.resize``. ``size`` is (height, width) or one int for
+    a square."""
     h, w = (size, size) if isinstance(size, int) else size
     if x.dim() not in (3, 4):
         raise ValueError(f"expected HWC or NHWC, got shape {tuple(x.shape)}")
-    nchw = (x[None] if x.dim() == 3 else x).permute(0, 3, 1, 2)
-    out = F.interpolate(nchw, size=(h, w), mode="bilinear", align_corners=False,
-                        antialias=True).permute(0, 2, 3, 1)
-    return out[0] if x.dim() == 3 else out
+    return resize(x, (*x.shape[:-3], h, w, x.shape[-1]), "bilinear")
+
+
+def small_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The mean over a short axis ``dim`` as XLA's CPU program takes
+    ``jnp.mean`` there: the entries summed in order, then multiplied by
+    float32(1 / n) (XLA turns the division by a constant into that
+    product). ``torch.mean`` sums in another order and divides, one
+    rounding off it in some entries."""
+    parts = torch.unbind(x, dim)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total * (1.0 / len(parts))
