@@ -198,10 +198,39 @@ Phases, each of which exits non-zero on failure:
                  ``make_synthesis_pipeline`` beside phase 13's graphed
                  synthesis; (d) ``make_full_inference_fn`` once at full
                  width, finite.
+18. int8 and serving — int8 post-training quantization (``ops/quant.py``:
+                 im2col + ``torch._int_mm``) and the ``torch.export``
+                 serving artifacts: the main path, ``int8_entry()`` (the
+                 full-size generator in bf16, calibrated on its example
+                 batch), answers 2 requests of 8, 3 K1 launches each; (a)
+                 ``int8``, ``int8+bf16rescale`` and ``int8+subpixel+
+                 bf16rescale`` (the bench's, calibrated on one batch of 16),
+                 eager and graphed at batch 8 and 128: replays bit-equal to
+                 eager, K1 3 per eager forward and 3 in a replay's trace,
+                 images/s, peak memory and kernels per forward beside phase
+                 13's bf16; (b) card against CPU: the int32 sums of three
+                 layers equal; every int8 conv of the f32 synthesis fed
+                 the CPU run's float input, its quantized weight and input
+                 held by flips, its int32 sums and its rescale against the
+                 CPU's; the whole f32 int8 synthesis (each side calibrated
+                 on its own) up to its first flip; (c) the per-layer A/B of
+                 ``examples/int8_variants_probe.py``: every distinct conv
+                 shape of the generator at batch 8, cuDNN bf16 against the
+                 int8 conv, us per call; (d) ``frontalize_entry``'s program
+                 with the int8 generator (2 eager requests, 3 K1 launches
+                 each; graphed equal to eager; images/s at batch 8 and the
+                 batch-1 latency beside phase 17's); (e) ``serving``:
+                 ``export_synthesis`` (f32, int8) and ``export_frontalize``
+                 (int8) on the card, each
+                 loaded back against the live program (within 1e-5 of its
+                 largest; their fuse is the plain one, and K1 equals it),
+                 their sizes, and ``aot_compile_synthesis``'s first
+                 request against ``make_synthesize_fn``'s.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
 phase 14's two loops, phase 15's steps and protocol runs, phase 16's
-two ``run_pretrain`` runs, and phase 17's frontalize requests) is driven
+two ``run_pretrain`` runs, phase 17's frontalize requests, and phase
+18's int8 synthesis and int8 frontalize requests) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
@@ -222,6 +251,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -355,6 +385,38 @@ FRONT_F32_TOL = 1e-4  # of the f32 face's largest magnitude, TF32 off
 FRONT_RESAMPLE_TOL = 1e-5  # the resampler and the preprocessing, card against CPU
 FRONT_TIMED = 20  # back-to-back calls per images/s figure
 FRONT_LATENCY = 100  # batch-1 calls, each timed alone (p90: ten beyond it)
+# phase 18: int8 synthesis and the serving export
+INT8_REQUESTS = 2
+INT8_MODES = ("int8", "int8+bf16rescale", "int8+subpixel+bf16rescale")
+INT8_SCAN_128 = 4  # dependent forwards per timed dispatch at batch 128 (one timed)
+INT8_CHECK_BATCH = 2  # the card-against-CPU synthesis
+INT8_AB_ITERS = 20  # timed calls per form and conv shape in the per-layer A/B
+# (input channels, size, kernel, stride, (lo, hi) padding, input dilation) of
+# the layers whose int32 sums the card and the CPU must give alike: the RGB
+# stem (K 147, padded to 152), conv0_res0's 7x7 64 -> 64 at 128x128 (K
+# 3,136) and deconv_32 as the dilated transposed conv (stride 4)
+INT8_LAYER_CHECKS = {"stem 7x7 3->64": (3, 128, 7, 1, (3, 3), 1),
+                     "conv0_res0 7x7 64->64": (64, 128, 7, 1, (3, 3), 1),
+                     "deconv_32 dilated x4": (64, 8, 3, 1, (2, 3), 4)}
+# Each int8 conv of the f32 synthesis on the card, fed the float input
+# the CPU run gave its twin (both programs on the CPU's scales): the
+# quantized weight and input flip in at most INT8_LAYER_FLIP_SHARE of
+# their values and never by more than 1 (the same IEEE products and
+# half-to-even rounding on both sides: none expected); the int32 sums of
+# the CPU's int8 input equal the CPU's; the rescale of the CPU's sums is
+# within INT8_RESCALE_REL of the CPU's output, of its largest magnitude
+# (elementwise float32 on both sides: equal expected). A bar per layer
+# does not depend on how a flip propagates.
+INT8_LAYER_FLIP_SHARE = 1e-3
+INT8_RESCALE_REL = 1e-6
+# The whole f32 int8 synthesis, each side calibrated on its own
+# (tests/test_torch_quant.py's argument): a last-bit difference in a float
+# activation or a scale moves a quantized value by 1 at a rounding edge,
+# and a flip then propagates through the layers after it; so only the
+# first layer that flips is held: by 1, in at most INT8_FIRST_FLIP_SHARE
+# of its values. The share over all layers and the image error are printed.
+INT8_FIRST_FLIP_SHARE = 1e-3
+EXPORT_TOL = 1e-5  # an artifact against the live program, of its largest output
 # run_pretrain as cmd_pretrain drives it: 544 training and 64 validation
 # images, validation every 5 steps, 2 epochs then a resume to 3, the
 # learning rate's milestones at epochs 1 and 2
@@ -2729,7 +2791,8 @@ def run_frontalize(dev, tag, synth_rates):
     program answers FRONT_REQUESTS requests of 8 uint8 frames; then (a)
     card against CPU, (b) the graph against eager and a replay's trace,
     (c) speed and memory, (d) ``make_full_inference_fn`` once. Returns the
-    main path's launches."""
+    main path's launches and {form: (images/s at batch 8, batch-1 median
+    and p90 latency in ms)}."""
     import numpy as np
     import torch
 
@@ -2844,6 +2907,407 @@ def run_frontalize(dev, tag, synth_rates):
         f"{tuple(out.shape)} {out.dtype}, finite; phase 17 took "
         f"{time.perf_counter() - start:.1f} s {tag}")
     del infer, gen16, det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {form: row[:3] for form, row in rows.items()}
+
+
+def synthesis_request(dev, batch, seed):
+    """A synthesis batch (``synthetic_gan_batch`` of ``seed``) and z from a
+    seeded generator, on the card."""
+    import torch
+
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops.quant import SYNTHESIS_KEYS
+
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in synthetic_gan_batch(batch, seed=seed).items() if k in SYNTHESIS_KEYS}
+    z = torch.randn(batch, 64, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    return inputs, z
+
+
+def quantized_inputs(model, synthesize, batch, z):
+    """``synthesize(batch, z)`` and, per int8 conv of ``model`` in call
+    order, its quantized input (on the host)."""
+    from tpgan_tpu_torch.ops import quant
+
+    records = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, _out: records.append(mod.quantize(args[0]).cpu()))
+        for m in model.modules() if isinstance(m, quant.Int8Conv)]
+    try:
+        out = synthesize(batch, z)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, records
+
+
+def flip_stats(got, want):
+    """Flips of quantized values between two runs' per-layer records: the
+    first layer with a flip (index, share, largest flip), the share over
+    all layers and the largest layer share."""
+    first, flipped, total, worst = None, 0, 0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape:
+            raise AssertionError(f"quantized inputs of layer {i}: {tuple(a.shape)} / "
+                                 f"{tuple(b.shape)}")
+        d = (a.int() - b.int()).abs()
+        n = int((d > 0).sum())
+        if n and first is None:
+            first = (i, n / d.numel(), int(d.max()))
+        flipped += n
+        total += d.numel()
+        worst = max(worst, n / d.numel())
+    return first, flipped / total, worst
+
+
+def _flips(got, want):
+    """(share of values that differ, largest difference) of two int8 tensors."""
+    if got.shape != want.shape:
+        raise AssertionError(f"int8 tensors of shapes {tuple(got.shape)} / {tuple(want.shape)}")
+    d = (got.int() - want.int()).abs()
+    return int((d > 0).sum()) / d.numel(), int(d.max())
+
+
+def int8_layers_against_cpu(cpu_model, card_model, batch, z, dev):
+    """Every int8 conv of ``card_model`` (on the card) fed the float input
+    its twin in ``cpu_model`` (the same program on the CPU) got in the
+    CPU's synthesis of ``batch``: per conv, the flips (share, largest) of
+    its quantized weight and of its quantized input against the CPU's,
+    whether its int32 sums of the CPU's int8 input equal the CPU's, and
+    the largest error of its rescale of the CPU's sums against the CPU's
+    output, over that output's largest magnitude."""
+    import torch
+
+    from tpgan_tpu_torch.ops import quant
+    from tpgan_tpu_torch.train.gan_trainer import synthesize_fn_of
+
+    convs = {n: m for n, m in cpu_model.named_modules() if isinstance(m, quant.Int8Conv)}
+    twins = dict(card_model.named_modules())
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda _mod, args, out, n=n: seen.setdefault(n, []).append((args[0], out)))
+        for n, m in convs.items()]
+    try:
+        synthesize_fn_of(cpu_model)(batch, z)
+    finally:
+        for h in hooks:
+            h.remove()
+    if set(seen) != set(convs) or any(len(v) != 1 for v in seen.values()):
+        raise AssertionError(f"int8 (b): {len(seen)} of {len(convs)} int8 convs ran once each")
+    rows = []
+    with torch.inference_mode():
+        for name, conv in convs.items():
+            twin = twins[name]
+            (x, y), = seen[name]
+            x_q = conv.quantize(x)
+            acc = conv.accumulate(x_q)
+            y_card = twin.rescale(acc.to(dev), y.dtype).cpu()
+            rows.append({
+                "name": name,
+                "weight_flips": _flips(twin.weight_q.cpu(), conv.weight_q),
+                "input_flips": _flips(twin.quantize(x.to(dev)).cpu(), x_q),
+                "sums_equal": torch.equal(twin.accumulate(x_q.to(dev)).cpu(), acc),
+                "rescale_rel": float((y_card - y).abs().max())
+                / max(float(y.abs().max()), 1e-30)})
+    return rows
+
+
+def int8_layers_outside_bars(rows):
+    """The rows of :func:`int8_layers_against_cpu` outside the per-layer bars."""
+    def flips_ok(share_largest):
+        return share_largest[0] <= INT8_LAYER_FLIP_SHARE and share_largest[1] <= 1
+
+    return [r for r in rows
+            if not (flips_ok(r["weight_flips"]) and flips_ok(r["input_flips"])
+                    and r["sums_equal"] and r["rescale_rel"] <= INT8_RESCALE_REL)]
+
+
+def run_int8(dev, tag, synth_rates, front_rates):
+    """Phase 18: int8 synthesis and the serving export on the card. The
+    main paths first (counts reset just before, read just after):
+    ``int8_entry()``'s int8 synthesis answers INT8_REQUESTS requests of 8,
+    then (a) the three int8 modes eager and graphed at batch 8 and 128,
+    (b) card against CPU, (c) the per-layer A/B, (d) the int8 frontalize
+    program (its eager requests a main path of their own), (e) the
+    export round trips. Returns the main paths' launches (summed)."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch import bench, serving
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.jit_preprocess import preprocess_for_synthesis_lm5
+    from tpgan_tpu_torch.entry import DETECTOR_SIZE, frames, int8_entry
+    from tpgan_tpu_torch.examples import int8_variants_probe
+    from tpgan_tpu_torch.frontalize import (
+        detect_lm5,
+        make_frontalize_fn,
+        make_graphed_frontalize_fn,
+    )
+    from tpgan_tpu_torch.models import generator as generator_module
+    from tpgan_tpu_torch.ops import kernels, quant
+    from tpgan_tpu_torch.train.gan_trainer import (
+        build_generator,
+        make_int8_synthesize_fn,
+        make_synthesize_fn,
+        synthesize_fn_of,
+    )
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    start = time.perf_counter()
+    _f32_exact(False)
+    fn, (batch, z) = int8_entry()
+    kernels.reset_launch_counts()
+    outs = [fn(batch, z) for _ in range(INT8_REQUESTS)]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {**dict.fromkeys(launches, 0), "fuse_parts": 3 * INT8_REQUESTS}
+    for o in outs:
+        if o.shape != (BATCH, 128, 128, 3) or o.dtype != torch.bfloat16 or not torch.isfinite(
+                o.float()).all():
+            raise AssertionError(f"int8_entry gave {tuple(o.shape)} {o.dtype} or non-finite values")
+    if launches != want:
+        raise AssertionError(f"int8 synthesis launches {launches}, expected {want}")
+    log(f"int8: int8_entry() answered {INT8_REQUESTS} requests of {BATCH} (full size, bf16, "
+        f"every conv int8 x int8 -> int32 through torch._int_mm); launches {launches} {tag}")
+    del fn, outs
+
+    # (a) the int8 modes, eager and graphed, at batch 8 and 128
+    lines = []
+    names = {"fuse_parts": ["fuse_parts_kernel"]}
+    for mode in INT8_MODES:
+        fns = bench.build_synthesizers(mode, dev)  # calibrated on one bench batch of 16
+        for b in (BATCH, 128):
+            fns["graphed"](*synthesis_request(dev, b, 1))  # the capture, on its own batch
+            inputs, zb = synthesis_request(dev, b, 2)
+            kernels.reset_launch_counts()
+            got = fns["graphed"](inputs, zb)
+            torch.cuda.synchronize()
+            replay = sum(kernels.launch_counts().values())
+            kernels.reset_launch_counts()
+            eager = fns["eager"](inputs, zb)
+            torch.cuda.synchronize()
+            eager_launches = kernels.launch_counts()
+            record = fns["graphed"].launches()[b]["fuse_parts"]
+            if (not torch.equal(got, eager) or replay or record != 3
+                    or eager_launches["fuse_parts"] != 3):
+                raise AssertionError(
+                    f"{mode} B={b}: graphed against eager max|diff| "
+                    f"{float((got.float() - eager.float()).abs().max())}; wrapper launches "
+                    f"over a replay {replay}; the capture's record {record}; eager "
+                    f"{eager_launches}")
+            torch.cuda.reset_peak_memory_stats()
+            scan, repeats = (bench.SCAN_LEN, 2) if b == BATCH else (INT8_SCAN_128, 1)
+            rates = {form: bench.measure(fns[form], b, dev, scan, repeats)
+                     for form in ("graphed", "eager")}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy = ""
+            if b == BATCH:
+                stats = profile(lambda: fns["graphed"](inputs, zb), 1,
+                                f"graphed {mode} synthesis batch {b}", "forward", tag, names)
+                check_traced(stats, f"one graphed {mode} forward", {"fuse_parts_kernel": 3})
+                eager_prof = profile(lambda: fns["eager"](inputs, zb), 2,
+                                     f"eager {mode} synthesis batch {b}", "forward", tag, names)
+                busy = ("" if eager_prof is None else
+                        f", {eager_prof['kernels']:.0f} kernels/forward eager "
+                        f"({eager_prof['busy_ms']:.2f} ms busy, idle {eager_prof['idle']:.0%}), "
+                        f"graphed {stats['busy_ms']:.2f} ms busy")
+            bf16 = synth_rates[b]
+            lines.append(f"{mode} B={b}: graphed {rates['graphed']:.1f} eager {rates['eager']:.1f} "
+                         f"images/s (bf16, phase 13: {bf16['graphed']:.1f} / {bf16['eager']:.1f}), "
+                         f"peak {peak:.2f} GiB{busy}; replay == eager, K1 3 per eager forward and "
+                         f"3 in a replay's trace")
+        del fns
+        torch.cuda.empty_cache()
+    for line in lines:
+        log(f"int8 (a): {line} {tag}")
+    log(f"int8 (a): {time.perf_counter() - start:.1f} s into phase 18")
+
+    # (b) card against CPU: one layer's int32 sums; the f32 int8 synthesis
+    rng = np.random.RandomState(18)
+    for name, (c, h, k, s, pad, dil) in INT8_LAYER_CHECKS.items():
+        x_q = torch.from_numpy(rng.randint(-127, 128, (2, c, h, h)).astype(np.int8))
+        mats = quant.pack_int8_weight(torch.from_numpy(
+            rng.randint(-127, 128, (64, c, k, k)).astype(np.int8)))
+        args = ((k, k), (s, s), (pad, pad), (dil, dil))
+        cpu = quant.int8_conv_accumulate(x_q, mats, *args)
+        card = quant.int8_conv_accumulate(x_q.to(dev), mats.to(dev), *args)
+        if not torch.equal(cpu, card.cpu()):
+            raise AssertionError(f"int8 (b): {name}'s int32 sums differ on the card")
+    _f32_exact(True)
+    cfg32 = make_config({"compute_dtype": "float32"})
+    cpu = torch.device("cpu")
+    gens = {dev: build_generator(cfg32, dev, seed=0)}
+    gens[cpu] = copy.deepcopy(gens[dev]).cpu()  # the card's weights
+    zs = [np.random.RandomState(30).standard_normal((INT8_CHECK_BATCH, 64)).astype(np.float32)]
+    calib = bench.bench_batch(INT8_CHECK_BATCH, "cpu")
+    request, zr = synthesis_request("cpu", INT8_CHECK_BATCH, 3)
+    runs = {}
+    for d, gen in gens.items():
+        scales = quant.calibrate_synthesis(cfg32, gen, [calib], zs=zs)
+        model = quant.make_int8_model(cfg32, gen, scales)
+        out, recs = quantized_inputs(model, synthesize_fn_of(model), request, zr)
+        runs[d.type] = (scales, out.cpu(), recs,
+                        make_synthesize_fn(cfg32, gen)(request, zr).cpu())
+        del model
+    (s_card, o_card, q_card, f_card), (s_cpu, o_cpu, q_cpu, _f) = runs["cuda"], runs["cpu"]
+    calib_rel = max(abs(float(s_card[k]) - float(s_cpu[k])) / float(s_cpu[k]) for k in s_cpu)
+    first, share, worst = flip_stats(q_card, q_cpu)
+    image_mae = float((o_card - o_cpu).abs().mean())
+    quant_mae = float((o_card - f_card).abs().mean())
+    layers = int8_layers_against_cpu(quant.make_int8_model(cfg32, gens[cpu], s_cpu),
+                                     quant.make_int8_model(cfg32, gens[dev], s_cpu),
+                                     request, zr, dev)
+    bad = int8_layers_outside_bars(layers)
+    ok = (not bad and (first is None or (first[2] == 1 and first[1] <= INT8_FIRST_FLIP_SHARE))
+          and bool(torch.isfinite(o_card).all()))
+    log(f"int8 (b): int32 sums equal on the card and the CPU ({', '.join(INT8_LAYER_CHECKS)}); "
+        f"each of the {len(layers)} int8 convs of the f32 synthesis (batch {INT8_CHECK_BATCH}, "
+        f"the CPU's scales) fed the CPU run's float input: weight flips share max "
+        f"{max(r['weight_flips'][0] for r in layers):.2e} largest "
+        f"{max(r['weight_flips'][1] for r in layers)}, input flips share max "
+        f"{max(r['input_flips'][0] for r in layers):.2e} largest "
+        f"{max(r['input_flips'][1] for r in layers)} (bars: share <= {INT8_LAYER_FLIP_SHARE}, "
+        f"largest 1), int32 sums of the CPU's int8 input equal in "
+        f"{sum(r['sums_equal'] for r in layers)}/{len(layers)} (bar: all), rescale of the CPU's "
+        f"sums max rel {max(r['rescale_rel'] for r in layers):.2e} (bar {INT8_RESCALE_REL}); "
+        f"{len(bad)} outside {[r['name'] for r in bad[:5]]} {tag}")
+    log(f"int8 (b): the whole f32 int8 synthesis, each side calibrated and quantized on its "
+        f"own: calibration max rel {calib_rel:.2e}; flips: first at layer "
+        f"{None if first is None else first[0]} share {0 if first is None else first[1]:.2e} "
+        f"max {0 if first is None else first[2]} (bars: max 1, share <= "
+        f"{INT8_FIRST_FLIP_SHARE}); propagated: all layers {share:.2e}, worst layer "
+        f"{worst:.2e}; image MAE card-CPU {image_mae:.2e} against the int8-float MAE "
+        f"{quant_mae:.2e} {tag}")
+    if not ok:
+        raise AssertionError("int8 (b): the card's int8 synthesis is outside its bars against "
+                             "the CPU")
+    del gens[cpu], runs, layers
+    _f32_exact(False)
+    log(f"int8 (b): {time.perf_counter() - start:.1f} s into phase 18")
+
+    # (c) the per-layer A/B: int8 conv (quantize, columns, _int_mm, rescale) against cuDNN bf16
+    rows = int8_variants_probe.layer_ab(dev, iters=INT8_AB_ITERS, log=lambda line: None)
+    log(f"int8 (c): per-layer A/B at batch {int8_variants_probe.LAYER_BATCH}, us per call, "
+        f"bf16 cuDNN against int8 (kind, input, weight, calls per forward) {tag}")
+    for r in rows:
+        log(f"int8 (c):   {r['kind']:15s} {str(r['input']):20s} {str(r['weight']):18s} "
+            f"x{r['calls_per_forward']}  bf16 {r['bf16_us']:9.2f}  int8 {r['int8_us']:9.2f}  "
+            f"{r['int8_over_bf16']:6.2f}x  {r['winner']}")
+    summary = int8_variants_probe.summary(rows)
+    log(f"int8 (c): {json.dumps(summary)}; {time.perf_counter() - start:.1f} s into phase 18 "
+        f"{tag}")
+
+    # (d) the int8 frontalize program: frontalize_entry's, the generator stage int8
+    cfg16 = make_config({"compute_dtype": "bfloat16"})
+    det = build_detector(cfg16, dev, seed=0)
+    gen16 = build_generator(cfg16, dev, seed=0)
+    images = torch.as_tensor(frames(BATCH, seed=0), device=dev)
+    zf = torch.as_tensor(np.random.RandomState(1).standard_normal((BATCH, 64)).astype(np.float32),
+                         device=dev)
+    lm5 = detect_lm5(det.eval(), images, detector_size=DETECTOR_SIZE)[0]
+    scales16 = quant.calibrate_synthesis(cfg16, gen16, [preprocess_for_synthesis_lm5(images, lm5)])
+    opts = dict(detector_size=DETECTOR_SIZE, quant_scales=scales16)
+    eager = make_frontalize_fn(cfg16, det, gen16, **opts)
+    kernels.reset_launch_counts()
+    fouts = [eager(images, zf) for _ in range(FRONT_REQUESTS)]
+    torch.cuda.synchronize()
+    front_launches = kernels.launch_counts()
+    if front_launches != {**dict.fromkeys(front_launches, 0), "fuse_parts": 3 * FRONT_REQUESTS}:
+        raise AssertionError(f"int8 frontalize launches {front_launches}")
+    graphed = make_graphed_frontalize_fn(cfg16, det, gen16, **opts)
+    graphed(torch.as_tensor(frames(BATCH, seed=9), device=dev), zf)  # the capture
+    if not all(torch.equal(g, w) for g, w in zip(graphed(images, zf), fouts[0])):
+        raise AssertionError("int8 frontalize: graphed differs from eager")
+    rate = BATCH / time_calls(graphed, (images, zf), FRONT_TIMED)
+    med, hi, hi_name = latencies(graphed, (images[:1], zf[:1]), FRONT_LATENCY)
+    g17 = front_rates["graphed"]
+    log(f"int8 (d): frontalize_entry's program with the int8 generator: {FRONT_REQUESTS} eager "
+        f"requests, launches {front_launches}; graphed == eager; graphed {rate:.1f} images/s at "
+        f"batch {BATCH}, batch 1 latency median {med:.2f} ms {hi_name} {hi:.2f} ms (bf16, "
+        f"phase 17: {g17[0]:.1f} images/s, {g17[1]:.2f} / {g17[2]:.2f} ms); "
+        f"{time.perf_counter() - start:.1f} s into phase 18 {tag}")
+    launches = {k: launches[k] + front_launches[k] for k in launches}
+    del eager, graphed, fouts, gen16
+
+    # (e) export: synthesis (f32, int8) and frontalize (int8); the bf16-stored
+    # and f32 frontalize artifacts are held on the CPU (tests/test_torch_serving.py)
+    _f32_exact(True)
+    gen32 = gens[dev]
+    req, zq = synthesis_request(dev, BATCH, 4)
+    checked = []
+
+    def fuse_equal(*parts):
+        got = kernels.fuse_parts(*parts)
+        checked.append(torch.equal(got, kernels.fuse_parts_plain(*parts)))
+        return got
+
+    with mock.patch.object(generator_module, "fuse_parts", fuse_equal):
+        live32 = make_synthesize_fn(cfg32, gen32)(req, zq)
+    if checked != [True] * 3:
+        raise AssertionError(f"int8 (e): K1 against the plain fuse of the f32 synthesis {checked}")
+    scales32 = quant.calibrate_synthesis(cfg32, gen32, [bench.bench_batch(16, dev)])
+    lives = {"f32": live32, "int8": make_int8_synthesize_fn(cfg32, gen32, scales32)(req, zq)}
+    root = tempfile.mkdtemp(prefix="tpgan_export_")
+    report = []
+    try:
+        for name, kw in (("f32", {}), ("int8", {"quant_scales": scales32})):
+            path = os.path.join(root, f"synthesis_{name}.pt2")
+            t0 = time.perf_counter()
+            serving.export_synthesis(cfg32, gen32, path, batch=BATCH, **kw)
+            t_export = time.perf_counter() - t0
+            out = serving.load_synthesis(path)(req, zq)
+            err = float((out.float() - lives[name].float()).abs().max())
+            scale = float(lives[name].float().abs().max())
+            if err > EXPORT_TOL * scale:
+                raise AssertionError(f"int8 (e): the {name} synthesis artifact is {err} off the "
+                                     f"live program (max {scale})")
+            report.append(f"synthesis {name}: {os.path.getsize(path) / 2**20:.1f} MiB, export "
+                          f"{t_export:.1f} s, max|artifact - live| {err:.2e} of max {scale:.3f}")
+        path = os.path.join(root, "frontalize_int8.pt2")
+        live = make_frontalize_fn(cfg32, det, gen32, detector_size=DETECTOR_SIZE,
+                                  quant_scales=scales32)(images, zf)
+        t0 = time.perf_counter()
+        serving.export_frontalize(cfg32, det, gen32, path, batch=BATCH,
+                                  input_hw=tuple(images.shape[1:3]),
+                                  detector_size=DETECTOR_SIZE, quant_scales=scales32)
+        t_export = time.perf_counter() - t0
+        fake, lm5_a, _scores = serving.load_synthesis(path)(images, zf)
+        err = float((fake - live[0]).abs().max())
+        lm_err = float((lm5_a - live[1]).abs().max())
+        if err > EXPORT_TOL * float(live[0].abs().max()) or lm_err > 1e-4:
+            raise AssertionError(f"int8 (e): the int8 frontalize artifact: face {err}, "
+                                 f"lm5 {lm_err} px off the live program")
+        report.append(f"frontalize int8 ({images.shape[1]}x{images.shape[2]} uint8 "
+                      f"frames): {os.path.getsize(path) / 2**20:.1f} MiB, export "
+                      f"{t_export:.1f} s, face {err:.2e}, lm5 {lm_err:.2e} px")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if gen32.plain_fuse or not all(p.requires_grad for p in gen32.parameters()):
+        raise AssertionError("int8 (e): an export changed the caller's generator")
+    log(f"int8 (e): {'; '.join(report)}; K1 == plain fuse on the f32 synthesis's three fuses "
+        f"(the artifacts' fuse is the plain one); the exported generator untouched {tag}")
+    _f32_exact(False)
+    gen_aot = build_generator(cfg16, dev, seed=0)
+    t0 = time.perf_counter()
+    aot = serving.aot_compile_synthesis(cfg16, gen_aot, batch=BATCH)
+    torch.cuda.synchronize()
+    t_aot = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aot(req, zq)
+    torch.cuda.synchronize()
+    first_aot = (time.perf_counter() - t0) * 1e3
+    fresh = make_synthesize_fn(cfg16, build_generator(cfg16, dev, seed=1))
+    t0 = time.perf_counter()
+    fresh(req, zq)
+    torch.cuda.synchronize()
+    first_eager = (time.perf_counter() - t0) * 1e3
+    log(f"int8 (e): aot_compile_synthesis at batch {BATCH}: {t_aot:.2f} s ahead, then a first "
+        f"request of {first_aot:.2f} ms, against make_synthesize_fn's first request "
+        f"{first_eager:.2f} ms (bf16; the process has run cuDNN's shapes before); phase 18 took "
+        f"{time.perf_counter() - start:.1f} s {tag}")
+    del aot, fresh, gen_aot, gens, det
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3122,7 +3586,12 @@ def main() -> int:
     # ---- 17. full-stack frontalization: uint8 frames to faces ----
     gc.collect()
     torch.cuda.empty_cache()
-    front_launches = run_frontalize(dev, tag, synth_rates)
+    front_launches, front_rates = run_frontalize(dev, tag, synth_rates)
+
+    # ---- 18. int8 synthesis and the serving export ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_launches = run_int8(dev, tag, synth_rates, front_rates)
 
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
@@ -3144,11 +3613,11 @@ def main() -> int:
         "replaces": replaces,
         # wrapper launches on the main paths: serve (4 requests) + train
         # (5 steps) + the loop's eager calls (2 captures' warm-up steps and
-        # 3 samples' forwards) + frontalize (2 requests); the loop's graph
-        # replays run no wrapper (the traces of phases 11, 13 and 17 show
-        # their kernels)
+        # 3 samples' forwards) + frontalize (2 requests) + int8 (2 synthesis
+        # and 2 frontalize requests); the loop's graph replays run no
+        # wrapper (the traces of phases 11, 13, 17 and 18 show their kernels)
         "launches": (serve_launches[name] + train_launches[name] + loop_launches[name]
-                     + front_launches[name]),
+                     + front_launches[name] + int8_launches[name]),
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",
@@ -3170,7 +3639,8 @@ def main() -> int:
     })
     log("launches by path: " + "; ".join(
         f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "
-        f"{loop_launches[name]}, frontalize {front_launches[name]}" for name in spec))
+        f"{loop_launches[name]}, frontalize {front_launches[name]}, int8 {int8_launches[name]}"
+        for name in spec))
     log(json.dumps(kernel_line))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's bench (``python -m tpgan_tpu_torch.bench``) without a GPU:
-its mode parser takes what the port runs and refuses the rest (int8 until
-ops/quant is ported, the TPU lane layout, typos), and with no CUDA device
+its mode parser takes what the port runs (bf16 and int8, with +subpixel and
+int8's +bf16rescale) and refuses the rest (+bf16rescale without int8, the
+TPU lane layout, typos), and with no CUDA device
 the script prints ``bench.py``'s headline line marked
 ``all(device_unavailable)`` and exits 0. On the CPU the graphed synthesis
 is the eager function, so the bench's chain of dependent forwards gives
@@ -27,17 +28,21 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("mode,upsample", [("bf16", None), ("bf16+subpixel", "subpixel")])
-def test_modes_the_port_runs(mode, upsample):
+@pytest.mark.parametrize("mode,upsample,knobs", [
+    ("bf16", None, None),
+    ("bf16+subpixel", "subpixel", None),
+    ("int8", None, {"rescale_dtype": None}),
+    ("int8+subpixel+bf16rescale", "subpixel", {"rescale_dtype": torch.bfloat16}),
+])
+def test_modes_the_port_runs(mode, upsample, knobs):
     overrides = bench.parse_mode(mode)
     assert overrides["compute_dtype"] == "bfloat16"
     assert overrides["G"].get("upsample_mode") == upsample
+    assert bench.int8_knobs(mode) == knobs
     make_config(overrides)
 
 
 @pytest.mark.parametrize("mode,match", [
-    ("int8", "ROADMAP A11"),
-    ("int8+subpixel+bf16rescale", "ROADMAP A11"),
     ("bf16+bf16rescale", "int8 option"),
     ("bf16+pad", "TPU lane layout"),
     ("bf16+subpixel+pad", "TPU lane layout"),
@@ -59,7 +64,7 @@ def test_without_cuda_the_script_prints_its_failure_line():
     assert line["skipped"] == ["all(device_unavailable)"]
     assert line["metric"] == "tpgan_synthesis_imgs_per_sec_per_chip"
     assert line["unit"] == "imgs/s" and line["value"] == 0.0 and line["mode"] is None
-    assert line["modes"] == {"bf16": None, "bf16+subpixel": None}
+    assert line["modes"] == {"int8+subpixel+bf16rescale": None, "bf16": None, "int8": None}
 
 
 def test_a_typo_fails_before_any_measurement():

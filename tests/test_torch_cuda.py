@@ -1,5 +1,6 @@
 """Cases of the PyTorch port that need an NVIDIA GPU: the hand-written
-CUDA kernels against their plain versions on the card. They skip on a
+CUDA kernels against their plain versions on the card, and the paths
+around them (graphs, data, the detector, frontalize, int8, export). They skip on a
 host without CUDA. This file imports nothing of JAX, so it also runs on a
 GPU machine without JAX:
 
@@ -998,3 +999,104 @@ def test_frontalize_entry_launches_k1_three_times_per_forward(cuda):
     assert fake.shape == (2, 128, 128, 3) and fake.dtype == torch.bfloat16
     assert torch.isfinite(fake.float()).all() and torch.isfinite(lm5).all()
     assert lm5.shape == (2, 5, 2) and scores.shape == (2, 4)
+
+
+# ---- int8 synthesis and the serving export on the card -------------------
+
+@pytest.mark.parametrize("geometry", [
+    (3, 20, 7, 1, (3, 3), 1, 1),  # the RGB stem: K 147, padded to 152
+    (16, 9, 3, 1, (1, 1), 1, 4),  # grouped
+    (32, 1, 8, 1, (7, 7), 1, 1),  # deconv_8: k8 from 1x1
+    (16, 8, 3, 1, (2, 3), 4, 1),  # deconv_32: dilated by 4
+])
+def test_int8_accumulator_on_the_card_equals_the_cpu(cuda, geometry):
+    """cuBLASLt's int8 GEMM (torch._int_mm) gives the CPU's exact sums, the
+    K and N padding and the row padding (fewer than 17 rows) included."""
+    from tpgan_tpu_torch.ops import quant
+
+    c, h, k, s, pad, dil, groups = geometry
+    rng = np.random.RandomState(c + h)
+    x_q = torch.from_numpy(rng.randint(-127, 128, (2, c, h, h)).astype(np.int8))
+    mats = quant.pack_int8_weight(torch.from_numpy(
+        rng.randint(-127, 128, (12, c // groups, k, k)).astype(np.int8)), groups)
+    args = ((k, k), (s, s), (pad, pad), (dil, dil))
+    want = quant.int8_conv_accumulate(x_q, mats, *args)
+    got = quant.int8_conv_accumulate(x_q.to(cuda), mats.to(cuda), *args)
+    assert torch.equal(got.cpu(), want)
+    small = x_q[:1, :, :3, :3]  # 9 rows for the stem and the grouped conv
+    tiny = quant.int8_conv_accumulate(small.to(cuda), mats.to(cuda), *args)
+    assert torch.equal(tiny.cpu(), quant.int8_conv_accumulate(small, mats, *args))
+
+
+@pytest.mark.parametrize("mode,rescale", [("deconv", None), ("subpixel", torch.bfloat16)])
+def test_graphed_int8_synthesis_equals_eager(cuda, mode, rescale):
+    """The int8 synthesis captures (no host value in its forward), its
+    replays equal eager calls on other batches, and K1 runs 3 times per
+    forward; the card's output is finite and near the float one (JAX's
+    MAE bar, tests/test_quant.py:126)."""
+    from tpgan_tpu_torch.ops import quant
+    from tpgan_tpu_torch.train.gan_trainer import (
+        make_graphed_int8_synthesize_fn,
+        make_int8_synthesize_fn,
+    )
+
+    cfg = make_config(dict(SMALL, compute_dtype="bfloat16",
+                           G=dict(SMALL["G"], upsample_mode=mode)))
+    gen = build_generator(cfg, cuda, seed=0)
+    keys = ("img", "left_eye", "right_eye", "nose", "mouth")
+    batches = [{k: v for k, v in synthetic_gan_batch(2, seed=s).items() if k in keys}
+               for s in range(3)]
+    z = np.random.RandomState(0).standard_normal((2, cfg.G.zdim)).astype(np.float32)
+    scales = quant.calibrate_synthesis(cfg, gen, batches[:1], zs=[z])
+    eager = make_int8_synthesize_fn(cfg, gen, scales, rescale_dtype=rescale)
+    graphed = make_graphed_int8_synthesize_fn(cfg, gen, scales, rescale_dtype=rescale)
+    graphed(batches[1], z)  # the capture
+    for batch in batches[1:]:
+        kernels.reset_launch_counts()
+        got = graphed(batch, z)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts().values()) == 0
+        want = eager(batch, z)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fuse_parts"] == 3
+        assert torch.equal(got, want)
+    assert graphed.launches()[2]["fuse_parts"] == 3
+    f32 = make_synthesize_fn(cfg, gen)(batches[2], z).float()
+    assert torch.isfinite(want.float()).all() and float((want.float() - f32).abs().mean()) < 0.25
+
+
+def test_int8_entry_launches_k1_three_times_per_forward(cuda):
+    from tpgan_tpu_torch.entry import int8_entry
+
+    fn, (batch, z) = int8_entry(batch_size=2)
+    kernels.reset_launch_counts()
+    out = fn(batch, z)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fuse_parts"] == 3
+    assert out.shape == (2, 128, 128, 3) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+
+
+def test_exported_synthesis_runs_on_the_card(cuda, tmp_path):
+    """An artifact exported on the card runs there, within 1e-5 of the
+    live f32 program (TF32 off), and its fuse is the plain one: it
+    launches no kernel of the port."""
+    from tpgan_tpu_torch import serving
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype="float32"))
+    gen = build_generator(cfg, cuda, seed=0)
+    batch, z = serving.example_inputs(cfg, 2, cuda)
+    batch = {k: torch.randn(v.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(i))
+             for i, (k, v) in enumerate(batch.items())}
+    path = str(tmp_path / "synthesis.pt2")
+    serving.export_synthesis(cfg, gen, path, batch=2)
+    loaded = serving.load_synthesis(path)
+    assert loaded.device.type == "cuda"
+    kernels.reset_launch_counts()
+    out = loaded(batch, z)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 0
+    live = make_synthesize_fn(cfg, gen)(batch, z)
+    torch.backends.cudnn.deterministic = False
+    assert float((out - live).abs().max()) <= 1e-5 * float(live.abs().max())

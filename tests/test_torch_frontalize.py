@@ -18,6 +18,8 @@ sides' softmax), lm5 within 1e-3 px, scores within 1e-5, valid equal;
 the slice's face within 1e-4 absolute in float32, its crops' floors
 (the landmarks in the 128 frame) equal to JAX's."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -35,8 +37,10 @@ from tpgan_tpu_torch.convert import jax_detector_variables_to_state_dict
 from tpgan_tpu_torch.data.celeba import letterbox as host_letterbox
 from tpgan_tpu_torch.data.synthetic_faces import render_face
 from tpgan_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from tpgan_tpu_torch.ops import quant
+from tpgan_tpu_torch.ops.blocks import BatchNorm2d, set_compute_dtype
 from tpgan_tpu_torch.ops.resize import resize
-from tpgan_tpu_torch.train.gan_trainer import build_generator
+from tpgan_tpu_torch.train.gan_trainer import build_generator, make_int8_synthesize_fn
 from tpgan_tpu_torch.train.pretrain import build_detector, fit_nose_prior
 
 from _torch_detector import detector_pair
@@ -50,6 +54,7 @@ SIZE = 128  # the detector's frame in these tests, as tests/test_frontalize.py u
 LM_ATOL = 1e-3
 SCORE_ATOL = 1e-5
 FACE_ATOL = 1e-4
+INT8_FACE_OF_QUANT = 1.5
 
 
 # ---- stub detectors: tests/test_frontalize.py's, as modules on NCHW ----
@@ -387,12 +392,110 @@ def test_make_frontalize_fn_matches_jax_whole(full):
 
 
 def test_make_frontalize_fn_refuses_what_it_cannot_run():
+    """The int8 stage refuses a BatchNorm generator (as JAX's does); the
+    detector must compute in float32: bf16 parameters pass only under a
+    float32 compute dtype (the serving export's narrowed detector)."""
     cfg = make_config(OVERRIDES)
     det = MobileNetV2(device="cpu")
     gen = build_generator(cfg, "cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="quant"):
-        front.make_frontalize_fn(cfg, det, gen, quant_scales={"x": 1.0})
+    bn_cfg = make_config({**OVERRIDES, "G": {**OVERRIDES["G"], "use_batchnorm": True}})
+    with pytest.raises(NotImplementedError, match="BatchNorm"):
+        front.make_frontalize_fn(bn_cfg, det, build_generator(bn_cfg, "cpu", seed=0),
+                                 quant_scales={"x": 1.0})
     with pytest.raises(ValueError, match="one device"):
         front.make_frontalize_fn(cfg, MobileNetV2(device="meta"), gen)
     with pytest.raises(ValueError, match="float32"):
-        front.make_frontalize_fn(cfg, det.to(torch.bfloat16), gen)
+        front.make_frontalize_fn(cfg, copy.deepcopy(det).to(torch.bfloat16), gen)
+    det16 = copy.deepcopy(det)  # conv weights stored in bf16, BatchNorm in float32
+    for m in det16.modules():
+        if not isinstance(m, BatchNorm2d):
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        front.make_frontalize_fn(cfg, det16, gen)
+    front.make_frontalize_fn(cfg, set_compute_dtype(det16, torch.float32), gen)
+
+
+# ---- the int8 generator stage ----
+
+def _jax_quant_tree(scales):
+    """The port's {module name: absmax} as JAX's nested ``quant``
+    collection (the inverse of ``convert.jax_quant_scales_to_port``)."""
+    tree = {}
+    for name, value in scales.items():
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node["x_absmax"] = np.float32(value)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def int8_side(full):
+    """The fm-0.25 generator on converted weights, its port calibration,
+    and two 128x128 frames with a rendered face each."""
+    cfg = make_config(OVERRIDES)
+    jcfg = jax_make_config(OVERRIDES)
+    jgen, _ = build_models(jcfg)
+    shapes = [(1, 128, 128, 3), (1, 40, 40, 3), (1, 40, 40, 3), (1, 32, 40, 3), (1, 32, 48, 3)]
+    params, _ = init_numpy(jgen, *(np.zeros(s, np.float32) for s in shapes),
+                           np.zeros((1, 64), np.float32), seed=3)
+    gen = load_port(build_generator(cfg, "cpu"), params)
+    images = np.zeros((2, 128, 128, 3), np.uint8)
+    for i in range(2):
+        face, _ = render_face(2 + i, 20.0 - 40.0 * i, 100)
+        images[i, 14 + 4 * i:114 + 4 * i, 10:110] = face
+    z = np.random.RandomState(5).standard_normal((2, cfg.G.zdim)).astype(np.float32)
+    batch = front.preprocess_for_synthesis_lm5(
+        torch.from_numpy(images), front.detect_lm5(full["det"], torch.from_numpy(images),
+                                                   detector_size=SIZE)[0])
+    scales = quant.calibrate_synthesis(cfg, gen, [batch], zs=[z])
+    return dict(cfg=cfg, jcfg=jcfg, jgen=jgen, params=params, gen=gen, images=images, z=z,
+                scales=scales)
+
+
+def test_int8_frontalize_is_the_composition(full, int8_side):
+    """``make_frontalize_fn(quant_scales=...)`` is ``detect_lm5`` ->
+    ``preprocess_for_synthesis_lm5`` -> ``make_int8_synthesize_fn``, bit
+    for bit (float32 and bf16 rescale); the graphed form is the eager one
+    on the CPU."""
+    s = int8_side
+    images = torch.from_numpy(s["images"])
+    for rdt in (None, torch.bfloat16):
+        fake, lm5, scores = front.make_frontalize_fn(
+            s["cfg"], full["det"], s["gen"], detector_size=SIZE, quant_scales=s["scales"],
+            quant_rescale_dtype=rdt)(images, s["z"])
+        want_lm5, _valid, want_scores = front.detect_lm5(full["det"], images, detector_size=SIZE)
+        batch = front.preprocess_for_synthesis_lm5(images, want_lm5)
+        want = make_int8_synthesize_fn(s["cfg"], s["gen"], s["scales"], rescale_dtype=rdt)(
+            batch, s["z"])
+        assert torch.equal(fake, want) and torch.equal(lm5, want_lm5)
+        assert torch.equal(scores, want_scores)
+    graphed = front.make_graphed_frontalize_fn(s["cfg"], full["det"], s["gen"], detector_size=SIZE,
+                                               quant_scales=s["scales"], quant_rescale_dtype=rdt)
+    assert all(torch.equal(a, b) for a, b in zip(graphed(images, s["z"]), (fake, lm5, scores)))
+
+
+def test_int8_frontalize_matches_jax(full, int8_side):
+    """Against JAX's ``make_frontalize_fn(quant_scales=...)`` on the same
+    scales, 128x128 frames: lm5 within LM_ATOL and the crops' floors equal
+    (the detector is float on both sides); the face no further from JAX's
+    int8 face than INT8_FACE_OF_QUANT times the port's own int8-vs-float
+    error (``tests/test_torch_quant.py``'s flip argument: last-bit float
+    differences move quantized values at rounding edges)."""
+    s = int8_side
+    want = jax.jit(jfront.make_frontalize_fn(s["jcfg"], full["jdet"], s["jgen"], detector_size=SIZE,
+                                             quant_scales=_jax_quant_tree(s["scales"])))(
+        s["params"], full["variables"], jnp.asarray(s["images"]), jnp.asarray(s["z"]))
+    fake, lm5, scores = front.make_frontalize_fn(
+        s["cfg"], full["det"], s["gen"], detector_size=SIZE, quant_scales=s["scales"])(
+        s["images"], s["z"])
+    np.testing.assert_allclose(lm5.numpy(), np.asarray(want[1]), rtol=0, atol=LM_ATOL)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(want[2]), rtol=0, atol=SCORE_ATOL)
+    assert np.array_equal(np.floor(lm5.numpy()), np.floor(np.asarray(want[1])))
+    float_fake = front.make_frontalize_fn(s["cfg"], full["det"], s["gen"], detector_size=SIZE)(
+        s["images"], s["z"])[0]
+    quant_mae = float((fake - float_fake).abs().mean())
+    assert quant_mae > 0
+    face_mae = float(np.abs(fake.numpy() - np.asarray(want[0])).mean())
+    assert face_mae <= INT8_FACE_OF_QUANT * quant_mae

@@ -31,6 +31,9 @@ PORT_FILES = sorted((ROOT / "tpgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_sm
 # the full-stack modules: the resampler, the preprocessing, the API and
 # frontalize (scanned with the rest; listed so a move shows here)
 FULL_STACK = ("ops/resize.py", "data/jit_preprocess.py", "api.py", "frontalize.py")
+# int8 PTQ and the serving export (scanned with the rest; listed so a
+# move shows here)
+INT8_SERVING = ("ops/quant.py", "serving.py", "examples/int8_variants_probe.py")
 # PIL: the card's machine is not promised an imaging package
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpgan_tpu", "PIL")
 
@@ -109,6 +112,16 @@ def test_entry_points_refuse_to_drift_to_cpu(no_cuda):
         run_pretrain(make_config(), iter(()), steps_per_epoch=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         frontalize_entry()
+
+
+def test_int8_and_serving_modules_are_scanned_and_int8_entry_refuses_to_drift(no_cuda):
+    scanned = {p.relative_to(ROOT / "tpgan_tpu_torch").as_posix() for p in PORT_FILES
+               if ROOT / "tpgan_tpu_torch" in p.parents}
+    assert set(INT8_SERVING) <= scanned
+    from tpgan_tpu_torch.entry import int8_entry
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        int8_entry()
 
 
 def test_frontalize_runs_where_its_modules_are():

@@ -20,9 +20,14 @@ run cut short still reports what it measured.
   the H100 SXM's 989 TFLOP/s dense bf16 (the card's power limit is in
   ``device``).
 
-Modes: ``bf16`` and ``bf16+subpixel``. ``int8`` waits for the port of
-``ops/quant`` (ROADMAP A11); ``+pad`` is the TPU lane layout, which
-``build_generator`` refuses; both raise, as typos do. With no CUDA device
+Modes (``bench.py``'s): base ``bf16`` or ``int8`` (the int8 PTQ synthesis,
+``ops/quant.py``, calibrated on one batch-16 bench batch as
+``bench.py:122-130`` does), with ``+subpixel`` (the subpixel upsample
+algorithm) and, for int8, ``+bf16rescale`` (the dequantize arithmetic in
+bf16). The default list is ``bench.py``'s, the headline serving mode
+first. ``+pad`` is the TPU lane layout, which ``build_generator``
+refuses, and ``bf16+bf16rescale`` names no int8 conv: both raise, as
+typos do. With no CUDA device
 the line carries ``skipped: ["all(device_unavailable)"]`` and the exit
 code is 0, as ``bench.py``'s is.
 """
@@ -41,24 +46,23 @@ import torch
 MODEL_FLOPS_PER_IMAGE = 170.9e9  # bench.py's count for the fm 1.0 synthesis graph
 BATCH_SIZES = (256, 128)
 SCAN_LEN = 8
-DEFAULT_MODES = "bf16,bf16+subpixel"
+DEFAULT_MODES = "int8+subpixel+bf16rescale,bf16,int8"
+CALIBRATION_BATCH = 16  # bench.py:125-127
 
 
 def parse_mode(mode: str) -> dict:
-    """'base+tok+tok' -> make_config overrides. Raises on what the port
-    does not run and on unknown names, so a typo never benches the
-    default config."""
+    """'base+tok+tok' -> make_config overrides (:func:`int8_knobs` reads
+    the int8 part). Raises on what the port does not run and on unknown
+    names, so a typo never benches the default config."""
     base, *tokens = mode.split("+")
     opts = set(tokens)
-    if base == "int8":
-        raise ValueError("int8 synthesis waits for the port of ops/quant (ROADMAP A11)")
-    if base != "bf16":
+    if base not in ("bf16", "int8"):
         raise ValueError(f"unknown bench mode base {base!r}")
     unknown = opts - {"pad", "subpixel", "bf16rescale"}
     if unknown:
         raise ValueError(f"unknown bench mode tokens {sorted(unknown)}")
-    if "bf16rescale" in opts:
-        raise ValueError("+bf16rescale is an int8 option; int8 waits for ROADMAP A11")
+    if "bf16rescale" in opts and base != "int8":
+        raise ValueError("+bf16rescale is an int8 option (the dequantize arithmetic in bf16)")
     if "pad" in opts:
         raise ValueError("+pad is the TPU lane layout (G.pad_channel_multiple), which the "
                          "port's build_generator refuses")
@@ -66,6 +70,16 @@ def parse_mode(mode: str) -> dict:
     if "subpixel" in opts:
         overrides["G"]["upsample_mode"] = "subpixel"
     return overrides
+
+
+def int8_knobs(mode: str) -> Optional[dict]:
+    """None for a bf16 mode; for an int8 mode the keyword arguments of
+    ``gan_trainer.make_int8_synthesize_fn`` (``rescale_dtype``)."""
+    parse_mode(mode)
+    base, *tokens = mode.split("+")
+    if base != "int8":
+        return None
+    return {"rescale_dtype": torch.bfloat16 if "bf16rescale" in tokens else None}
 
 
 def bench_batch(b: int, device) -> Dict[str, torch.Tensor]:
@@ -79,18 +93,27 @@ def bench_batch(b: int, device) -> Dict[str, torch.Tensor]:
 
 def build_synthesizers(mode: str, device) -> Dict[str, Callable]:
     """{"graphed": ..., "eager": ...}: the two forms of one seeded
-    full-size generator's synthesis function in ``mode``."""
+    full-size generator's synthesis function in ``mode``; an int8 mode
+    calibrates on one batch-16 bench batch first."""
     from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.ops import quant
     from tpgan_tpu_torch.train.gan_trainer import (
         build_generator,
+        make_graphed_int8_synthesize_fn,
         make_graphed_synthesize_fn,
+        make_int8_synthesize_fn,
         make_synthesize_fn,
     )
 
     cfg = make_config(parse_mode(mode))
     gen = build_generator(cfg, device, seed=0)
-    return {"graphed": make_graphed_synthesize_fn(cfg, gen),
-            "eager": make_synthesize_fn(cfg, gen)}
+    knobs = int8_knobs(mode)
+    if knobs is None:
+        return {"graphed": make_graphed_synthesize_fn(cfg, gen),
+                "eager": make_synthesize_fn(cfg, gen)}
+    scales = quant.calibrate_synthesis(cfg, gen, [bench_batch(CALIBRATION_BATCH, device)])
+    return {"graphed": make_graphed_int8_synthesize_fn(cfg, gen, scales, **knobs),
+            "eager": make_int8_synthesize_fn(cfg, gen, scales, **knobs)}
 
 
 def chain(synthesize: Callable, batch, z0: torch.Tensor, scan_len: int = SCAN_LEN) -> torch.Tensor:
@@ -281,8 +304,8 @@ def bench_torch_reference(batch_size: int = 2, iters: int = 2, warmup: int = 1,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--modes", default=DEFAULT_MODES,
-                    help="comma list of bf16 with optional +subpixel; the fastest mode is "
-                         "the headline value")
+                    help="comma list of bf16|int8 with optional +subpixel and, for int8, "
+                         "+bf16rescale; the fastest mode is the headline value")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--batch-sizes", default=",".join(map(str, BATCH_SIZES)))
     args = ap.parse_args(argv)

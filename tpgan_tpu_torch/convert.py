@@ -1,7 +1,8 @@
 """Carry weights, and whole train states, from the JAX package to the
 port: the generator, the critic, a whole GAN train state, the identity
-embedder (:func:`jax_embedder_variables_to_state_dict`) and the landmark
-detector (:func:`jax_detector_variables_to_state_dict`).
+embedder (:func:`jax_embedder_variables_to_state_dict`), the landmark
+detector (:func:`jax_detector_variables_to_state_dict`) and the int8
+calibration (:func:`jax_quant_scales_to_port`).
 
 The inverse of ``tpgan_tpu/train/checkpoint.py``'s torch-to-Flax import
 (``conv_weight``, ``deconv_weight``, ``_bn`` and the fc1 flatten
@@ -115,6 +116,30 @@ def jax_generator_params_to_state_dict(
     for path, _bn in _bn_paths(params_np):
         sd[".".join(path) + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def jax_quant_scales_to_port(quant_collection: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map JAX's ``quant`` collection (``ops.quant.calibrate_synthesis``'s
+    result: ``{"local_left_eye": {"conv0": {"conv": {"x_absmax": a}}}, ...}``,
+    on the host) onto the port's calibration: {module name: 0-d float32
+    tensor}, ``"local_left_eye.conv0.conv"``, the walk of
+    :func:`jax_generator_params_to_state_dict` (a conv's ``quant`` variable
+    sits on the module that holds its ``kernel``). Load it with
+    ``ops.quant.load_quant_scales`` or pass it to
+    ``gan_trainer.make_int8_synthesize_fn``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], path: tuple) -> None:
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (key,))
+            elif key == "x_absmax":
+                out[".".join(path)] = torch.tensor(np.float32(np.asarray(value)))
+            else:
+                raise ValueError(f"unknown quant variable {'.'.join(path + (key,))}")
+
+    walk(quant_collection, ())
+    return out
 
 
 def jax_critic_params_to_state_dict(

@@ -3,6 +3,9 @@ weights, seeded synthetic batches):
 
 * :func:`entry` — the counterpart of ``__graft_entry__.entry()``: the
   full-size (fm=1.0) generator synthesis forward at batch 8 in bfloat16;
+* :func:`int8_entry` — its int8 counterpart: the same generator
+  calibrated on the example batch and served by
+  ``gan_trainer.make_int8_synthesize_fn``;
 * :func:`train_entry` — the full-size fused WGAN-GP train step at batch
   16 in bfloat16 (f32 master weights), through ``create_gan_state`` +
   ``make_gan_train_step`` as ``tpgan_tpu/train/loop.py`` builds it,
@@ -31,10 +34,12 @@ from tpgan_tpu_torch.models.feature_extract import (
     build_feature_extract_model,
     make_identity_embed_fn,
 )
+from tpgan_tpu_torch.ops.quant import calibrate_synthesis
 from tpgan_tpu_torch.train.gan_trainer import (
     build_generator,
     create_gan_state,
     make_gan_train_step,
+    make_int8_synthesize_fn,
     make_synthesize_fn,
 )
 from tpgan_tpu_torch.train.pretrain import build_detector, create_pretrain_state, make_pretrain_step
@@ -55,17 +60,37 @@ def entry(device: Optional[Union[str, torch.device]] = None):
     device = resolve_device(device)
     cfg = make_config({"compute_dtype": "bfloat16"})
     gen = build_generator(cfg, device, seed=0)
-    synthesize = make_synthesize_fn(cfg, gen)
+    return make_synthesize_fn(cfg, gen), _example(cfg, device)
+
+
+def _example(cfg, device, batch_size: int = BATCH):
+    """The entry points' synthesis batch (seed 0) and z (seed 1) on ``device``."""
     batch = {
         k: torch.as_tensor(v, device=device)
-        for k, v in synthetic_gan_batch(BATCH, seed=0).items()
+        for k, v in synthetic_gan_batch(batch_size, seed=0).items()
         if k in PATCH_KEYS
     }
     z = torch.as_tensor(
-        np.random.RandomState(1).standard_normal((BATCH, cfg.G.zdim)).astype(np.float32),
+        np.random.RandomState(1).standard_normal((batch_size, cfg.G.zdim)).astype(np.float32),
         device=device,
     )
-    return synthesize, (batch, z)
+    return batch, z
+
+
+def int8_entry(device: Optional[Union[str, torch.device]] = None, batch_size: int = BATCH):
+    """Returns ``(fn, args)``: ``fn(*args)`` is the NHWC bf16
+    ``img128_fake`` of the int8 synthesis of a batch of ``batch_size``
+    (8): :func:`entry`'s full-size generator (seed 0, bf16 compute),
+    calibrated on that example batch (``ops.quant.calibrate_synthesis``,
+    z from its seeded ``torch.Generator``), every conv int8 x int8 ->
+    int32 with float32 rescale. On ``cuda`` unless ``device`` says
+    otherwise (raises when no GPU is present and none was asked for)."""
+    device = resolve_device(device)
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    gen = build_generator(cfg, device, seed=0)
+    batch, z = _example(cfg, device, batch_size)
+    scales = calibrate_synthesis(cfg, gen, [batch])
+    return make_int8_synthesize_fn(cfg, gen, scales), (batch, z)
 
 
 def train_entry(device: Optional[Union[str, torch.device]] = None, batch_size: int = TRAIN_BATCH,

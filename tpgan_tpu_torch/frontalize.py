@@ -40,7 +40,7 @@ from tpgan_tpu_torch.losses.decoder import decode_for_head_mode
 from tpgan_tpu_torch.models.generator import Generator
 from tpgan_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from tpgan_tpu_torch.ops.resize import reciprocal_f32, resize, scale_and_translate
-from tpgan_tpu_torch.train.gan_trainer import make_synthesize_fn
+from tpgan_tpu_torch.train.gan_trainer import make_int8_synthesize_fn, make_synthesize_fn
 from tpgan_tpu_torch.utils import graphs
 from tpgan_tpu_torch.utils.misc import small_mean
 
@@ -229,6 +229,15 @@ def _device_of(detector: MobileNetV2, gen: Generator) -> torch.device:
     return device
 
 
+def _computes_in_f32(detector: MobileNetV2) -> bool:
+    """Every parameter float32, or held narrower by a layer whose compute
+    dtype is float32 (``blocks.set_compute_dtype``): the detector then
+    computes in float32 either way (``serving.export_frontalize``'s
+    narrowed weights)."""
+    return all(p.dtype == torch.float32 or getattr(m, "compute_dtype", None) == torch.float32
+               for m in detector.modules() for p in m.parameters(recurse=False))
+
+
 def make_frontalize_fn(
     cfg: Config,
     detector: MobileNetV2,
@@ -240,6 +249,8 @@ def make_frontalize_fn(
     nose_prior=None,
     nose_gate_ratio: float = 0.35,
     quant_scales=None,
+    quant_rescale_dtype: Optional[torch.dtype] = None,
+    quant_min_channels: Optional[int] = None,
 ) -> Frontalize:
     """The raw image -> frontal face program: ``frontalize(images, z)``
     with images (B, H, W, 3), uint8 or float in [0, 1], and z (B, zdim)
@@ -252,17 +263,22 @@ def make_frontalize_fn(
     as the JAX package builds it; the synthesis batch is cropped from
     them (``data/jit_preprocess``) and the generator runs through
     ``make_synthesize_fn`` in ``cfg.compute_dtype``. ``quant_scales``
-    (int8 synthesis, ``tpgan_tpu/ops/quant.py``) is not ported yet and
-    raises."""
-    if quant_scales is not None:
-        raise NotImplementedError(
-            "quant_scales: int8 synthesis needs the port of tpgan_tpu/ops/quant.py "
-            "(ROADMAP A11 (c)), which this package does not have yet")
+    (``ops.quant.calibrate_synthesis``'s) swaps the generator stage onto
+    the int8 program (``gan_trainer.make_int8_synthesize_fn``, with
+    ``quant_rescale_dtype`` / ``quant_min_channels`` as its knobs); the
+    detector stays float, as in ``tpgan_tpu/frontalize.py:333-348``.
+    ``frontalize.models`` holds the detector and the generator the
+    program runs (the generator's compute-dtype or int8 copy)."""
     device = _device_of(detector, gen)
-    if any(p.dtype != torch.float32 for p in detector.parameters()):
+    if not _computes_in_f32(detector):
         raise ValueError("frontalize runs the detector in float32; its parameters are not")
     detector.eval()
-    synthesize = make_synthesize_fn(cfg, gen)
+    if quant_scales is not None:
+        synthesize = make_int8_synthesize_fn(cfg, gen, quant_scales,
+                                             rescale_dtype=quant_rescale_dtype,
+                                             min_channels=quant_min_channels)
+    else:
+        synthesize = make_synthesize_fn(cfg, gen)
     prior = None if nose_prior is None else torch.as_tensor(
         np.asarray(nose_prior, np.float32), device=device)
 
@@ -277,6 +293,7 @@ def make_frontalize_fn(
         return fake, lm5, scores
 
     frontalize.device = device
+    frontalize.models = {"detector": detector, "generator": synthesize.model}
     return frontalize
 
 
@@ -289,7 +306,9 @@ def make_graphed_frontalize_fn(cfg: Config, detector: MobileNetV2, gen: Generato
     every call copies its inputs into that graph's buffers, replays it
     and returns copies of the outputs. A failed capture raises; nothing
     falls back to eager calls. ``graphed.launches()`` holds each graph's
-    kernel launches of one replay. On the CPU it is the eager function."""
+    kernel launches of one replay. ``options`` are
+    :func:`make_frontalize_fn`'s, the int8 ones included. On the CPU it is
+    the eager function."""
     frontalize = make_frontalize_fn(cfg, detector, gen, **options)
     if frontalize.device.type != "cuda":
         return frontalize

@@ -5,6 +5,10 @@ max-fuser, the GlobalPathway, and the identity classification head
 
 All three fuses go through the kernel wrapper ``ops.kernels.fuse_parts``:
 the hand-written CUDA kernel on the card, its plain version on the CPU.
+A generator with ``plain_fuse`` set computes them with the plain version
+on any device: ``serving.py`` sets it on the copy it exports, since
+``torch.export`` cannot trace the kernel's ``ctypes`` launch, so that an
+artifact loads and runs with torch alone.
 
 Dropout (``FeaturePredict``, rate 0.3; ``ops.blocks.dropout``) draws its mask from an explicit
 ``torch.Generator`` or takes a precomputed keep-mask; with
@@ -23,7 +27,7 @@ from tpgan_tpu_torch.models.global_pathway import GlobalPathway
 from tpgan_tpu_torch.models.local_pathway import LocalPathway
 from tpgan_tpu_torch.ops import initializers as init_lib
 from tpgan_tpu_torch.ops.blocks import LinearBlock, dropout
-from tpgan_tpu_torch.ops.kernels import fuse_parts
+from tpgan_tpu_torch.ops.kernels import fuse_parts, fuse_parts_plain
 
 
 class FeaturePredict(nn.Module):
@@ -68,6 +72,8 @@ class GeneratorOutput(NamedTuple):
 
 
 class Generator(nn.Module):
+    plain_fuse: bool = False  # the plain fuse on every device (the serving export)
+
     def __init__(
         self,
         zdim: int,
@@ -124,9 +130,10 @@ class Generator(nn.Module):
 
         # Max-fuse features, fake patches, and GT patches onto the canvas
         # (D_and_G_model.py:396-398)
-        fused_feature = fuse_parts(le_feat, re_feat, no_feat, mo_feat)
-        fused_fake = fuse_parts(le_img, re_img, no_img, mo_img)
-        fused_origin = fuse_parts(
+        fuse = fuse_parts_plain if self.plain_fuse else fuse_parts
+        fused_feature = fuse(le_feat, re_feat, no_feat, mo_feat)
+        fused_fake = fuse(le_img, re_img, no_img, mo_img)
+        fused_origin = fuse(
             left_eye.contiguous(), right_eye.contiguous(), nose.contiguous(),
             mouth.contiguous(),
         )

@@ -45,8 +45,6 @@ Left out of this port, on purpose:
   in f32 and round once on output either way; the option is omitted.
 * ``pad_in_multiple`` (TPU lane alignment) — it changes the stored kernel
   shapes, so ``build_generator`` rejects ``G.pad_channel_multiple``.
-* The int8 post-training-quantization hooks (``ops/quant.py``) — a later
-  slice of the port.
 * ``pre_activation``: no layer of the port uses it. ``Conv2d`` takes
   ``bias_init`` (the detector's SSD head and extra layers start their
   biases at zero); the other layers keep torch's uniform bias.
@@ -54,13 +52,31 @@ Left out of this port, on purpose:
   here (the embedders' depthwise convs, ``groups == in_channels``) and,
   as JAX hands its grouped convs to XLA, goes to cuDNN through
   ``F.conv2d(groups=...)``; its fan-in is ``in_channels / groups``.
-* The subpixel phase decomposition: ``"subpixel"`` maps onto the same
-  ``conv_transpose2d`` as ``"deconv"`` (same math, same parameters).
+* The subpixel phase decomposition in float: ``"subpixel"`` maps onto the
+  same ``conv_transpose2d`` as ``"deconv"`` (same math, same parameters).
+  Only the int8 path takes the phase weights (:func:`subpixel_weights`),
+  because the two algorithms quantize different tensors.
+
+Post-training quantization (``ops/quant.py``): ``Conv2d`` and
+``ConvTranspose2d`` carry a quant mode (``quant.quant_mode``). In
+``calib`` a conv records the absmax of its input — after the cast to the
+compute dtype and the reflect pad for ``Conv2d``, the cast input before
+any padding for ``ConvTranspose2d`` (``tpgan_tpu/ops/blocks.py:139-141,
+320-322``) — and runs in float. In ``int8`` a conv prepared by
+``quant.prepare_int8`` (where ``quant.should_quantize`` takes it) runs
+as int8 x int8 -> int32 (``quant.int8_program``): ``Conv2d`` over its
+OIHW weight; ``ConvTranspose2d``
+over its flipped kernel on the input dilated by the stride, or, in
+``subpixel`` mode where the JAX block's test admits it, over the phase
+weights followed by a depth-to-space; the bias is added after the
+rescale, in the rescale dtype, and the result cast to the compute dtype
+(``:172-178``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
@@ -100,6 +116,44 @@ def reflect_pad(x: torch.Tensor, lrtb: Sequence[int]) -> torch.Tensor:
     return F.pad(x, tuple(lrtb), mode="reflect")
 
 
+# The quant modes of a conv layer (``ops/quant.py``'s ``quant_mode``)
+CALIB = "calib"
+INT8 = "int8"
+
+# ``cfg.compute_dtype`` -> torch dtype
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _Quantizable(nn.Module):
+    """The post-training-quantization state of a conv layer, which
+    ``ops/quant.py`` sets: ``quant_mode`` (None, ``CALIB`` or ``INT8``), the
+    calibrated input absmax and the two ``quant.quant_config`` knobs.
+    ``quant.prepare_int8`` quantizes the weight once: the layer then holds
+    its int8 program as the child ``int8`` (None where the knobs keep it
+    float) and ``quant_prepared`` is set."""
+
+    quant_mode: Optional[str] = None
+    quant_absmax: Optional[torch.Tensor] = None
+    quant_rescale_dtype: torch.dtype = torch.float32
+    quant_min_channels: int = 0
+    quant_prepared: bool = False
+
+    def _quant_forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The quant mode's part of a forward, on the cast (and padded)
+        input: in ``CALIB`` the running absmax of ``x`` is recorded and None
+        returned (the float conv follows); in ``INT8`` the prepared int8
+        program's output, or None where the layer stays float."""
+        if self.quant_mode == CALIB:
+            m = x.detach().abs().amax().float()
+            prev = self.quant_absmax
+            self.quant_absmax = m if prev is None else torch.maximum(prev, m)
+            return None
+        if not self.quant_prepared:
+            raise ValueError("int8 mode on a conv whose weight is not quantized: "
+                             "quant.prepare_int8 (or quant.make_int8_model) prepares it")
+        return None if self.int8 is None else self.int8(x)
+
+
 def _cast(layer: nn.Module, x: torch.Tensor):
     """(input, weight, bias) in the layer's compute dtype (the weight's
     dtype when none is set)."""
@@ -110,7 +164,7 @@ def _cast(layer: nn.Module, x: torch.Tensor):
     return x.to(dtype), layer.weight.to(dtype), bias
 
 
-class Conv2d(nn.Module):
+class Conv2d(_Quantizable):
     """Conv with torch-default init and reference padding forms; OIHW,
     (out, in / groups, kh, kw) when grouped."""
 
@@ -136,6 +190,8 @@ class Conv2d(nn.Module):
                              f"out_channels={out_channels}")
         self.stride = _pair(stride)
         self.groups = groups
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.quant_in_per_group, self.quant_out = in_channels // groups, out_channels
         self.reflect, self.padding = _canon_padding(padding)
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kh, kw, device=device)
@@ -156,14 +212,64 @@ class Conv2d(nn.Module):
         x, w, b = _cast(self, x)
         if self.reflect is not None:
             x = reflect_pad(x, self.reflect)
+        if self.quant_mode is not None:
+            y = self._quant_forward(x)
+            if y is not None:
+                return y
         return F.conv2d(x, w, b, self.stride, self.padding, groups=self.groups)
 
 
-class ConvTranspose2d(nn.Module):
+def subpixel_plan(k: int, s: int, p: int, op: int):
+    """Per-axis phase plan of the exact transposed-conv decomposition, a
+    copy of ``tpgan_tpu/ops/blocks.py::_subpixel_plan``. In the
+    dilated-forward-conv view the dilated input is non-zero only at
+    ``padlo + s*i`` (padlo = k-1-p), so an output at ``s*m+r`` touches the
+    kernel taps ``ky = (padlo-r) (mod s)``, each reading ``x[m +
+    (r+ky-padlo)//s]``. Returns ``(taps, lo, hi, win, extra)``: ``taps[r]`` lists
+    ``(kernel_tap, input_offset)`` of phase r; pad the input by (lo, hi),
+    run a ``win``-wide VALID conv, and each phase yields ``H + extra``
+    outputs."""
+    padlo = k - 1 - p
+    taps, offs = [], []
+    for r in range(s):
+        t = [(ky, (r + ky - padlo) // s) for ky in range((padlo - r) % s, k, s)]
+        taps.append(t)
+        offs += [d for _, d in t]
+    dmin = min(offs) if offs else 0
+    dmax = max(offs) if offs else 0
+    lo = max(0, -dmin)
+    extra = (k + op - 2 * p) // s - 1
+    hi = dmax + extra
+    win = lo + dmax + 1
+    return taps, lo, hi, win, extra
+
+
+def subpixel_weights(wf: torch.Tensor, taps_h, lo_h: int, win_h: int, taps_w, lo_w: int,
+                     win_w: int) -> torch.Tensor:
+    """A flipped transposed-conv kernel (kh, kw, cin, cout) rearranged into
+    the stride-1 conv weight (win_h, win_w, cin, sh*sw*cout) of the
+    subpixel decomposition, phase-major output blocks (the depth-to-space
+    order): ``tpgan_tpu/ops/blocks.py::_subpixel_weights``, element for
+    element (pure placement, no arithmetic)."""
+    cin, cout = wf.shape[2], wf.shape[3]
+    sh, sw = len(taps_h), len(taps_w)
+    out = wf.new_zeros((win_h, win_w, cin, sh * sw * cout))
+    for ry, th in enumerate(taps_h):
+        for ky, dy in th:
+            for rx, tw in enumerate(taps_w):
+                for kx, dx in tw:
+                    phase = ry * sw + rx
+                    out[dy + lo_h, dx + lo_w, :, phase * cout:(phase + 1) * cout] = wf[ky, kx]
+    return out
+
+
+class ConvTranspose2d(_Quantizable):
     """torch ConvTranspose2d(k, s, p, output_padding); weight IOHW
     (in, out, kh, kw), the layout the JAX kernel (kh, kw, in, out) maps to
     without a flip (reference usage: D_and_G_model.py:218-220 —
-    deconv_8's k8-from-1x1 and deconv_32's stride 4)."""
+    deconv_8's k8-from-1x1 and deconv_32's stride 4). ``algorithm``
+    (``"dilated"`` or ``"subpixel"``) is how the int8 path runs it; the
+    float path is ``conv_transpose2d`` either way."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -178,12 +284,18 @@ class ConvTranspose2d(nn.Module):
         use_bias: bool = True,
         kernel_init=None,
         device=None,
+        algorithm: str = "dilated",
     ):
         super().__init__()
+        if algorithm not in ("dilated", "subpixel"):
+            raise ValueError(f"unknown transposed-conv algorithm {algorithm!r}")
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
         self.output_padding = _pair(output_padding)
+        self.kernel_size = (kh, kw)
+        self.algorithm = algorithm
+        self.quant_in_per_group, self.quant_out = in_channels, out_channels
         self.weight = nn.Parameter(
             torch.empty(in_channels, out_channels, kh, kw, device=device)
         )
@@ -200,8 +312,27 @@ class ConvTranspose2d(nn.Module):
         if self.bias is not None:
             self._bias_init(self.bias, generator)
 
+    def phase_plan(self):
+        """The two axes' ``subpixel_plan`` when the int8 path decomposes
+        this transposed conv into phases (JAX's test,
+        ``tpgan_tpu/ops/blocks.py:323-333``), else None."""
+        kh, kw = self.kernel_size
+        (sh, sw), (ph, pw), (oph, opw) = self.stride, self.padding, self.output_padding
+        if not (self.algorithm == "subpixel" and (sh > 1 or sw > 1)
+                and kh - 1 - ph >= 0 and kw - 1 - pw >= 0
+                and (kh + oph - 2 * ph) % sh == 0 and (kw + opw - 2 * pw) % sw == 0):
+            return None
+        plan_h, plan_w = subpixel_plan(kh, sh, ph, oph), subpixel_plan(kw, sw, pw, opw)
+        if plan_h[2] < 0 or plan_w[2] < 0:
+            return None
+        return plan_h, plan_w
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = _cast(self, x)
+        if self.quant_mode is not None:
+            y = self._quant_forward(x)
+            if y is not None:
+                return y
         return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding)
 
 
@@ -332,6 +463,7 @@ class DeconvBlock(nn.Module):
                 use_bias=not use_batchnorm,
                 kernel_init=init_lib.deconv_kernel_init(weight_init, slope),
                 device=device,
+                algorithm="subpixel" if mode == "subpixel" else "dilated",
             )
         else:
             raise ValueError(f"unknown DeconvBlock mode {mode!r}")
@@ -471,6 +603,19 @@ def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Mod
         if isinstance(m, (Conv2d, ConvTranspose2d, LinearBlock)):
             m.compute_dtype = dtype
     return module
+
+
+def compute_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` whose conv and linear weights are in ``dtype``.
+    BatchNorm stays float32: it normalises in f32 and casts back, as the
+    JAX BatchNorm2d does."""
+    out = copy.deepcopy(module)
+    for m in out.modules():
+        if isinstance(m, BatchNorm2d):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return out
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:

@@ -38,7 +38,6 @@ the card, and :func:`make_graphed_synthesize_fn` the synthesis forward.
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -52,18 +51,20 @@ from tpgan_tpu_torch.losses.gan import discriminator_loss, gradient_penalty
 from tpgan_tpu_torch.models.discriminator import Discriminator
 from tpgan_tpu_torch.models.generator import Generator
 from tpgan_tpu_torch.ops.blocks import (
+    DTYPES,
     BatchNorm2d,
+    compute_copy,
     dropout_keep_mask,
     frozen_batch_stats,
     reset_parameters,
     set_compute_dtype,
 )
 from tpgan_tpu_torch.ops.kernels import fuse_parts
+from tpgan_tpu_torch.ops.quant import SYNTHESIS_KEYS, make_int8_model
 from tpgan_tpu_torch.train.optim import adam_wgan, make_capturable
 from tpgan_tpu_torch.utils import graphs
 from tpgan_tpu_torch.utils.device import resolve_device
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ArrayLike = Union[torch.Tensor, np.ndarray]
 Batch = Mapping[str, ArrayLike]
 IdentityEmbedFn = Callable[[torch.Tensor], torch.Tensor]
@@ -110,7 +111,7 @@ def build_models(
     ``build_models`` does. The generator's weights come from ``seed`` (the
     same as :func:`build_generator`'s), the critic's from ``seed + 1``."""
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.compute_dtype]
+    dtype = DTYPES[cfg.compute_dtype]
     gen = build_generator(cfg, device, seed)
     disc = Discriminator(
         use_batchnorm=cfg.D.use_batchnorm, fm_multiplier=cfg.D.fm_multiplier, device=device
@@ -609,19 +610,6 @@ def make_multi_step(train_step, num_steps: int):
     multi_step.launches = lambda: captured["launches"].per_replay if captured else None
     return multi_step
 
-def _compute_copy(gen: Generator, dtype: torch.dtype) -> Generator:
-    """A copy of ``gen`` whose conv and linear weights are in ``dtype``.
-    BatchNorm stays float32: it normalises in f32 and casts back, as the
-    JAX BatchNorm2d does."""
-    out = copy.deepcopy(gen)
-    for m in out.modules():
-        if isinstance(m, BatchNorm2d):
-            continue
-        for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
-    return out
-
-
 def make_synthesize_fn(
     cfg: Config, gen: Generator
 ) -> Callable[[Mapping[str, ArrayLike], ArrayLike], torch.Tensor]:
@@ -636,9 +624,17 @@ def make_synthesize_fn(
     a copy made here: later changes to ``gen`` do not reach the returned
     function.
     """
-    dtype = _DTYPES[cfg.compute_dtype]
-    device = next(gen.parameters()).device
-    model = gen if dtype == torch.float32 else _compute_copy(gen, dtype)
+    dtype = DTYPES[cfg.compute_dtype]
+    return synthesize_fn_of(gen if dtype == torch.float32 else compute_copy(gen, dtype))
+
+
+def synthesize_fn_of(model: Generator) -> Callable[[Mapping[str, ArrayLike], ArrayLike],
+                                                   torch.Tensor]:
+    """:func:`make_synthesize_fn`'s function over ``model`` as it is (put
+    in eval mode here): its weights' dtype is the compute dtype. The int8
+    synthesis (:func:`make_int8_synthesize_fn`) passes its quantized
+    copy. ``synthesize.model`` is ``model``."""
+    device = next(model.parameters()).device
     model.eval()
 
     def nchw(x: ArrayLike) -> torch.Tensor:
@@ -654,10 +650,8 @@ def make_synthesize_fn(
         return out.img128_fake.permute(0, 2, 3, 1).contiguous()
 
     synthesize.device = device  # where it runs: make_synthesis_pipeline's inputs go there
+    synthesize.model = model
     return synthesize
-
-
-SYNTHESIS_KEYS = ("img", "left_eye", "right_eye", "nose", "mouth")
 
 
 def make_graphed_synthesize_fn(
@@ -671,7 +665,14 @@ def make_graphed_synthesize_fn(
     falls back to eager calls. On the CPU it is the eager function (the
     plain form). The counterpart of the JAX bench's jitted ``lax.scan``
     of synthesis forwards (``bench.py:85-164``)."""
-    synthesize = make_synthesize_fn(cfg, gen)
+    return graph_synthesize_fn(make_synthesize_fn(cfg, gen))
+
+
+def graph_synthesize_fn(synthesize: Callable[[Mapping[str, ArrayLike], ArrayLike], torch.Tensor]
+                        ) -> Callable[[Mapping[str, ArrayLike], ArrayLike], torch.Tensor]:
+    """A synthesis function (:func:`synthesize_fn_of`'s contract) as CUDA-graph
+    replays, one graph per batch shape (:func:`make_graphed_synthesize_fn`);
+    the function itself on the CPU."""
     if synthesize.device.type != "cuda":
         return synthesize
     replay = graphs.graphed_per_shape(
@@ -684,4 +685,34 @@ def make_graphed_synthesize_fn(
     # {batch size: the launches of one replay}, for each captured shape
     graphed.launches = lambda: {key[0][0][0]: launches
                                 for key, launches in replay.launches().items()}
+    graphed.device, graphed.model = synthesize.device, synthesize.model
     return graphed
+
+
+def make_int8_synthesize_fn(cfg: Config, gen: Generator, quant_scales: Mapping[str, Any],
+                            rescale_dtype: Optional[torch.dtype] = None,
+                            min_channels: Optional[int] = None
+                            ) -> Callable[[Mapping[str, ArrayLike], ArrayLike], torch.Tensor]:
+    """The int8 twin of :func:`make_synthesize_fn` (``tpgan_tpu/ops/quant.py``'s
+    ``make_int8_synthesize_fn``), with its contract: ``synthesize(batch,
+    z)`` returns the NHWC ``img128_fake`` in ``cfg.compute_dtype`` on
+    ``gen``'s device, every quantized conv int8 x int8 -> int32 with the
+    calibrated ``quant_scales`` (``ops.quant.calibrate_synthesis``'s, or
+    JAX's through ``convert.jax_quant_scales_to_port``). The weights are
+    quantized once, here, into a copy (``ops.quant.make_int8_model``).
+    ``rescale_dtype`` / ``min_channels``: see ``ops.quant.quant_config``.
+    The three fuses run the port's kernel on the card. A generator with
+    BatchNorm raises."""
+    return synthesize_fn_of(make_int8_model(cfg, gen, quant_scales, rescale_dtype, min_channels))
+
+
+def make_graphed_int8_synthesize_fn(cfg: Config, gen: Generator, quant_scales: Mapping[str, Any],
+                                    rescale_dtype: Optional[torch.dtype] = None,
+                                    min_channels: Optional[int] = None
+                                    ) -> Callable[[Mapping[str, ArrayLike], ArrayLike],
+                                                  torch.Tensor]:
+    """:func:`make_int8_synthesize_fn`'s function as one CUDA-graph replay
+    per forward (:func:`graph_synthesize_fn`); the eager function on the
+    CPU."""
+    return graph_synthesize_fn(
+        make_int8_synthesize_fn(cfg, gen, quant_scales, rescale_dtype, min_channels))
