@@ -164,8 +164,8 @@ Phases, each of which exits non-zero on failure:
                  CPU with the same uniforms: the assignment equal, the loss
                  within 1e-5 |ref| + 1e-6, parameters and statistics within
                  DETECTOR_STEP_ULPS ulp of each leaf's largest; (4)
-                 ``run_pretrain`` as ``cmd_pretrain`` drives it, 2 epochs
-                 and a resume to 3, from the JPEG files through
+                 the CLI's ``pretrain`` (``cli.main``), 2 epochs and a
+                 ``--resume`` to 3, from the JPEG files through
                  ``batch_iterator`` (one 256 bucket) and from two buckets
                  (256, 384) resident in device memory with pixel-budget
                  batches: metrics finite, parameters moved, the nose prior
@@ -226,11 +226,29 @@ Phases, each of which exits non-zero on failure:
                  largest; their fuse is the plain one, and K1 equals it),
                  their sizes, and ``aot_compile_synthesis``'s first
                  request against ``make_synthesize_fn``'s.
+19. cli        — the command line at full width, ``tpgan_tpu_torch.cli.
+                 main`` in this process (the counts are read here):
+                 ``synth-data --protocol both --pack`` (4 subjects, 96
+                 CelebA-layout JPEGs); ``train`` bf16, batch 16, from
+                 ``--packed --device-data`` (yaw-weighted), 20 steps eager
+                 (7 / 2 / 1 / 1 launches per step) and 20 with
+                 ``--steps-per-dispatch 2`` (a CUDA graph: only the warm-up
+                 steps launch wrappers), metrics finite, a checkpoint;
+                 ``synthesize`` from it (a 128x128 PNG, 3 K1 launches);
+                 ``eval`` on the rendered list (finite JSON, every camera);
+                 ``pretrain --device-data``; ``frontalize`` a PNG and a
+                 JPEG frame with both checkpoints (3 K1 each); an f32
+                 ``export`` loaded back within EXPORT_TOL of the live
+                 program; then ``python3 -m tpgan_tpu_torch synthesize`` in
+                 a fresh process (within the bf16 bound of the in-process
+                 PNG) and one with ``CUDA_VISIBLE_DEVICES=`` (exit 3). Each
+                 subcommand's wall time, and ``train``'s images/s.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
 phase 14's two loops, phase 15's steps and protocol runs, phase 16's
-two ``run_pretrain`` runs, phase 17's frontalize requests, and phase
-18's int8 synthesis and int8 frontalize requests) is driven
+two ``pretrain`` runs, phase 17's frontalize requests, phase 18's int8
+synthesis and int8 frontalize requests, and each of phase 19's
+subcommands) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
@@ -417,7 +435,16 @@ INT8_RESCALE_REL = 1e-6
 # of its values. The share over all layers and the image error are printed.
 INT8_FIRST_FLIP_SHARE = 1e-3
 EXPORT_TOL = 1e-5  # an artifact against the live program, of its largest output
-# run_pretrain as cmd_pretrain drives it: 544 training and 64 validation
+# phase 19: the command line. synth-data renders CLI_SUBJECTS x 9 cameras
+# (8 training items each) and a CelebA layout of CLI_PRETRAIN_IMAGES JPEGs;
+# train takes CLI_TRAIN_STEPS steps (metrics logged at 10 and 20: steps
+# 11-20 are the rate's window), eagerly and CLI_DISPATCH per dispatch
+CLI_SUBJECTS = 4
+CLI_PRETRAIN_IMAGES = 96
+CLI_PRETRAIN_BATCH = 16
+CLI_TRAIN_STEPS = 20
+CLI_DISPATCH = 2
+# the CLI's pretrain (phase 16): 544 training and 64 validation
 # images, validation every 5 steps, 2 epochs then a resume to 3, the
 # learning rate's milestones at epochs 1 and 2
 DETECTOR_OVERRIDES = ["pretrain.train_data_ratio=0.85", "pretrain.validation_data_ratio=0.1",
@@ -2412,72 +2439,34 @@ def check_detector_step(dev, tag, ds):
     return runs
 
 
-def _pretrain_like_cli(dev, cfg, ck, resume, device_data):
-    """``cmd_pretrain`` (``tpgan_tpu/cli.py:86-165``) on the port: the
-    dataset and its split, the nose prior from the training labels, the
-    host batch iterator (or, ``device_data``, the buckets resident in
-    device memory with pixel-budget batches), a metrics writer and
-    ``run_pretrain``. Returns (the final state, steps per epoch, the log
-    directory)."""
-    import numpy as np
+def _pretrain_cli(dev, args, cfg, ck, resume, device_data):
+    """``python -m tpgan_tpu_torch pretrain`` in this process, as a user
+    calls it: ``cli.main`` with ``args`` (``--set`` overrides) and the
+    checkpoint directory. Returns (the final state and the steps per
+    epoch that ``run_pretrain`` was given, the log directory)."""
+    from tpgan_tpu_torch import cli
+    from tpgan_tpu_torch.train import pretrain
 
-    from tpgan_tpu_torch.data.celeba import CelebALandmarkDataset
-    from tpgan_tpu_torch.data.packing import (
-        device_bucketed_batch_iterator,
-        device_bucketed_eval_batches,
-        load_pretrain_to_device,
-        pixel_budget_batches,
-    )
-    from tpgan_tpu_torch.data.pipeline import batch_iterator, bucketed_batch_iterator
-    from tpgan_tpu_torch.train.metrics import MetricWriter
-    from tpgan_tpu_torch.train.pretrain import fit_nose_prior, run_pretrain
+    seen = {}
 
-    p = cfg.pretrain
-    ds = CelebALandmarkDataset(p.txt_name, p.data_root_dir, p.image_size, buckets=p.image_buckets)
-    train_idx, val_idx, _ = ds.split(p.train_data_ratio, p.validation_data_ratio)
-    steps_per_epoch = max(len(train_idx) // p.batch_size, 1)
-    nose_prior = fit_nose_prior(np.stack([
-        ds.labels[os.path.basename(ds.image_paths[i])] for i in train_idx]))
-    iterators = []
-    if device_data:
-        train_groups = load_pretrain_to_device(ds, train_idx, dev)
-        val_groups = load_pretrain_to_device(ds, val_idx, dev) if val_idx else {}
-        batch_for = (pixel_budget_batches({**val_groups, **train_groups}, p.batch_size)
-                     if p.image_buckets else None)
-        if batch_for:
-            steps_per_epoch = max(1, int(sum(int(g["img"].shape[0]) / batch_for[k]
-                                             for k, g in train_groups.items())))
-        train_it = device_bucketed_batch_iterator(train_groups, p.batch_size,
-                                                  seed=cfg.train.seed, batch_for=batch_for)
+    def recorder(*a, **k):
+        seen["state"], seen["spe"] = real(*a, **k), k["steps_per_epoch"]
+        return seen["state"]
 
-        def val_batches():
-            return device_bucketed_eval_batches(val_groups, p.batch_size, batch_for=batch_for)
-    else:
-        make_iter = bucketed_batch_iterator if p.image_buckets else batch_iterator
-        train_it = make_iter(ds, p.batch_size, shuffle=True, indices=train_idx, epochs=None)
-        iterators.append(train_it)
-
-        def val_batches():
-            it = make_iter(ds, p.batch_size, shuffle=False, indices=val_idx, epochs=1,
-                           drop_last=False)
-            iterators.append(it)
-            return it
-    log_dir = os.path.join(p.log_root_dir, p.model_name)
-    writer = MetricWriter(log_dir, use_tensorboard=False)
-    try:
-        state = run_pretrain(cfg, train_it, val_batches_fn=val_batches if val_idx else None,
-                             steps_per_epoch=steps_per_epoch, writer=writer, checkpoint_dir=ck,
-                             resume=resume, nose_prior=nose_prior, device=dev)
-    finally:
-        writer.close()
-        for it in iterators:
-            it.close()
-    return state, steps_per_epoch, log_dir
+    real = pretrain.run_pretrain
+    argv = ["pretrain", "--checkpoint", ck, *args, "--device", str(dev)]
+    argv += ["--device-data"] if device_data else []
+    argv += ["--resume"] if resume else []
+    with mock.patch.object(pretrain, "run_pretrain", recorder):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli pretrain {argv} failed")
+    return seen["state"], seen["spe"], os.path.join(cfg.pretrain.log_root_dir,
+                                                     cfg.pretrain.model_name)
 
 
 def run_detector_pretrain(dev, tag, root, txt, name, overrides):
-    """Phase 16 (4): ``run_pretrain`` as ``cmd_pretrain`` drives it, 2
-    epochs then a resume to 3: metrics finite, the parameters moved, the
+    """Phase 16 (4): the CLI's ``pretrain`` (``cli.main``), 2 epochs then
+    ``--resume`` to 3: metrics finite, the parameters moved, the
     sidecar with the nose prior, per-epoch checkpoints and ``best/``, the
     resume continuing the step count and the schedule, the checkpoint
     reloading bit for bit. Returns the wrapper launches of the two runs."""
@@ -2498,10 +2487,11 @@ def run_detector_pretrain(dev, tag, root, txt, name, overrides):
             f"pretrain.log_root_dir={os.path.join(run_root, 'logs')}", *DETECTOR_OVERRIDES,
             *overrides]
     cfg = flat_override(make_config(), base)
+    args = [a for kv in base for a in ("--set", kv)]
     device_data = "device" in name
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    state, spe, log_dir = _pretrain_like_cli(dev, cfg, ck, False, device_data)
+    state, spe, log_dir = _pretrain_cli(dev, args, cfg, ck, False, device_data)
     first_s = time.perf_counter() - t0
     first_step = state.step
     init = build_detector(cfg, dev, seed=0)
@@ -2511,7 +2501,8 @@ def run_detector_pretrain(dev, tag, root, txt, name, overrides):
                              f"{latest_step(ck)}, {moved} parameter elements moved")
     cfg3 = flat_override(cfg, ["pretrain.num_epochs=3"])
     t0 = time.perf_counter()
-    resumed, _, _ = _pretrain_like_cli(dev, cfg3, ck, True, device_data)
+    resumed, _, _ = _pretrain_cli(dev, [*args, "--set", "pretrain.num_epochs=3"], cfg3, ck, True,
+                                  device_data)
     resume_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     torch.cuda.synchronize()
@@ -3313,6 +3304,219 @@ def run_int8(dev, tag, synth_rates, front_rates):
     return launches
 
 
+def _cli(argv, what, walls):
+    """``python -m tpgan_tpu_torch <argv>`` in this process (``cli.main``,
+    so the wrappers' counts are read here): its stdout's lines, its wall
+    time (set-up included) under ``walls[what]``; fails unless it returns
+    0."""
+    import io
+
+    from tpgan_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    walls[what] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {what}: {argv} returned {rc}")
+    return out.getvalue().strip().splitlines()
+
+
+def _counted(fn, totals, want, what):
+    """``fn()`` with the wrappers' counts set to 0 just before and read just
+    after; they must equal ``want``, and they add to ``totals``."""
+    import torch
+
+    from tpgan_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        raise AssertionError(f"cli {what}: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    return result
+
+
+def run_cli(dev, tag):
+    """Phase 19: the command line, ``tpgan_tpu_torch.cli.main`` in this
+    process at full width (fm 1.0): synth-data; train (bf16, batch 16,
+    from ``--packed --device-data``) eager and then with
+    ``--steps-per-dispatch 2``; synthesize, eval, pretrain, frontalize and
+    an f32 export from the checkpoints those runs wrote; then
+    ``python3 -m tpgan_tpu_torch synthesize`` in a fresh process, and one
+    with ``CUDA_VISIBLE_DEVICES=`` (exit 3). Returns the wrappers'
+    launches of the in-process runs."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch import cli, serving
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.imageio import read_png, write_jpeg, write_png
+    from tpgan_tpu_torch.data.synthetic_faces import (
+        ALL_CAMERA_YAWS,
+        landmarks68_string,
+        render_face,
+    )
+    from tpgan_tpu_torch.train.checkpoint import latest_step
+    from tpgan_tpu_torch.train.gan_trainer import GRAPH_WARMUP_CALLS, make_synthesize_fn
+
+    start = time.perf_counter()
+    walls, totals, notes = {}, {}, []
+    device = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the procedural protocols, rendered and packed (host only)
+        line = _cli(["synth-data", "--out", root, "--protocol", "both", "--subjects",
+                     str(CLI_SUBJECTS), "--pretrain-images", str(CLI_PRETRAIN_IMAGES), "--pack"],
+                    "synth-data", walls)
+        data = json.loads(line[-1])
+        if data["gan_train_items"] != 8 * CLI_SUBJECTS:
+            raise AssertionError(f"cli synth-data: {data}")
+
+        # 2. train, full width, bf16, batch 16, from the pack in device memory
+        runs = {}
+        for name, k in (("eager", 1), ("graphed", CLI_DISPATCH)):
+            ck, logs = os.path.join(root, f"ck_{name}"), os.path.join(root, f"logs_{name}")
+            argv = ["train", "--packed", data["gan_packed"], "--device-data", "--steps",
+                    str(CLI_TRAIN_STEPS), "--steps-per-dispatch", str(k), "--checkpoint", ck,
+                    "--log-dir", logs, "--set", f"train.batch_size={TRAIN_BATCH}",
+                    "--set", "train.yaw_weight_gamma=1.0", *device]
+            steps = CLI_TRAIN_STEPS if k == 1 else GRAPH_WARMUP_CALLS  # eager ones
+            _counted(lambda: _cli(argv, f"train {name}", walls), totals,
+                     {n: v * steps for n, v in PER_STEP.items() if v}, f"train {name}")
+            with open(os.path.join(logs, "metrics.jsonl")) as f:
+                rows = [json.loads(r) for r in f]
+            bad = [(r["step"], m) for r in rows for m, v in r.items() if not np.isfinite(v)]
+            if latest_step(ck) != CLI_TRAIN_STEPS or [r["step"] for r in rows] != [10, 20] \
+                    or bad:
+                raise AssertionError(f"cli train {name}: checkpoint {latest_step(ck)}, metrics "
+                                     f"at {[r['step'] for r in rows]}, non-finite {bad}")
+            runs[name] = rows[-1]["imgs_per_sec"]
+        ck = os.path.join(root, "ck_eager")
+
+        # 3. synthesize from that checkpoint
+        img, lm5 = render_face(3, ALL_CAMERA_YAWS["140"], 200)
+        probe, probe_jpg = os.path.join(root, "probe.png"), os.path.join(root, "probe_q92.jpg")
+        write_png(probe, img)
+        write_jpeg(probe_jpg, img, quality=92)
+        with open(os.path.join(root, "lm.txt"), "w") as f:
+            f.write(landmarks68_string(lm5))
+        synth_args = ["synthesize", "--image", probe, "--landmarks",
+                      os.path.join(root, "lm.txt"), "--checkpoint", ck]
+        out_png = os.path.join(root, "frontal.png")
+        _counted(lambda: _cli([*synth_args, "--output", out_png, *device], "synthesize", walls),
+                 totals, {"fuse_parts": 3}, "synthesize")
+        face = read_png(out_png)
+        if face.shape != (128, 128, 3) or face.dtype != np.uint8 or face.std() == 0:
+            raise AssertionError(f"cli synthesize: {face.shape} {face.dtype}")
+
+        # 4. eval on the rendered list
+        batches = -(-data["gan_train_items"] // TRAIN_BATCH)
+        line = _counted(lambda: _cli(["eval", "--img-list", data["gan_img_list"], "--checkpoint",
+                                      ck, "--batch-size", str(TRAIN_BATCH), *device],
+                                     "eval", walls),
+                        totals, {"fuse_parts": 3 * batches}, "eval")
+        scores = json.loads(line[-1])
+        if not (np.isfinite(scores["psnr"]) and -1 <= scores["ssim"] <= 1
+                and scores["num_images"] == data["gan_train_items"]
+                and len(scores["per_camera"]) == 8):
+            raise AssertionError(f"cli eval: {scores}")
+        notes.append(f"eval psnr {scores['psnr']:.3f} ssim {scores['ssim']:.4f} over "
+                     f"{scores['num_images']} items")
+
+        # 5. a short pretrain from the rendered CelebA layout, in device memory
+        det = os.path.join(root, "det")
+        _counted(lambda: _cli(["pretrain", "--device-data", "--checkpoint", det,
+                               "--set", f"pretrain.data_root_dir={data['pretrain_root']}",
+                               "--set", f"pretrain.log_root_dir={os.path.join(root, 'dlogs')}",
+                               "--set", f"pretrain.batch_size={CLI_PRETRAIN_BATCH}",
+                               "--set", "pretrain.num_epochs=1",
+                               "--set", "pretrain.train_data_ratio=0.8",
+                               "--set", "pretrain.validation_data_ratio=0.1",
+                               "--set", "pretrain.log_step_of_batchs=2", *device],
+                              "pretrain", walls),
+                 totals, {}, "pretrain")
+        if not latest_step(det):
+            raise AssertionError("cli pretrain wrote no checkpoint")
+
+        # 6. frontalize with both checkpoints, a PNG and a JPEG frame
+        front = os.path.join(root, "front")
+        line = _counted(lambda: _cli(["frontalize", "--image", probe, "--image", probe_jpg,
+                                      "--detector-checkpoint", det, "--checkpoint", ck,
+                                      "--output", front, *device], "frontalize", walls),
+                        totals, {"fuse_parts": 6}, "frontalize")
+        names = ["probe_frontal.png", "probe_q92_frontal.png"]
+        shapes = [read_png(os.path.join(front, n)).shape for n in names]
+        if len(line) != 2 or shapes != [(128, 128, 3)] * 2 or sorted(os.listdir(front)) != names:
+            raise AssertionError(f"cli frontalize: {line}, {os.listdir(front)}")
+        notes.append(f"frontalize: {line[0].split(': ', 1)[1]}")
+
+        # 7. an f32 export that loads back equal to the live program
+        pt2 = os.path.join(root, "synthesis.pt2")
+        f32 = ["--set", "compute_dtype=float32"]
+        _f32_exact(True)
+        _counted(lambda: _cli(["export", "--checkpoint", ck, "--batch", "2", "--output", pt2,
+                               *f32, *device], "export", walls), totals, {}, "export")
+        cfg = make_config({"compute_dtype": "float32"})
+        live = make_synthesize_fn(cfg, cli.eval_generator(
+            cfg, argparse.Namespace(checkpoint=ck, g_weights="auto"), dev))
+        batch, z = serving.example_inputs(cfg, 2, dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        batch = {k: torch.rand(v.shape, generator=gen, device=dev) * 2 - 1
+                 for k, v in batch.items()}
+        z = torch.randn(z.shape, generator=gen, device=dev)
+        want, got = live(batch, z), serving.load_synthesis(pt2)(batch, z)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        _f32_exact(False)
+        if not diff <= EXPORT_TOL * float(want.abs().max()):
+            raise AssertionError(f"cli export: the artifact is {diff} off the live program")
+        notes.append(f"export f32 {os.path.getsize(pt2) / 2**20:.1f} MiB, loaded back "
+                     f"max|diff| {diff:.2e} against the live program")
+        del live, want, got
+
+        # a fresh process: python3 -m tpgan_tpu_torch, cold
+        here = os.path.dirname(os.path.abspath(__file__))
+        sub_png = os.path.join(root, "sub.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpgan_tpu_torch", *synth_args, "--output",
+                               sub_png], cwd=here, capture_output=True, text=True, timeout=300)
+        walls["python3 -m synthesize (fresh process)"] = time.perf_counter() - t0
+        if proc.returncode != 0 or proc.stdout.strip() != f"wrote {sub_png}":
+            raise AssertionError(f"python3 -m tpgan_tpu_torch synthesize: rc {proc.returncode}, "
+                                 f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+        sub = read_png(sub_png).astype(int)
+        gap = int(np.abs(sub - face.astype(int)).max())
+        if gap > BF16_REL_DIFF * 255:
+            raise AssertionError(f"python3 -m synthesize is {gap} levels off the in-process one")
+        notes.append(f"python3 -m synthesize {gap} levels from the in-process PNG")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpgan_tpu_torch", "eval", "--img-list",
+                               data["gan_img_list"]], cwd=here, capture_output=True, text=True,
+                              timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        walls["python3 -m eval, CUDA_VISIBLE_DEVICES= (exit 3)"] = time.perf_counter() - t0
+        if proc.returncode != 3 or "tpgan_tpu_torch eval: no CUDA device" not in proc.stderr:
+            raise AssertionError(f"without a visible card: rc {proc.returncode}, "
+                                 f"{proc.stderr[-500:]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"cli: train full size bf16 batch {TRAIN_BATCH} from --packed --device-data, "
+        f"imgs_per_sec of steps 11-{CLI_TRAIN_STEPS}: eager {runs['eager']:.1f}, "
+        f"--steps-per-dispatch {CLI_DISPATCH} (graph replays) {runs['graphed']:.1f}; "
+        f"{'; '.join(notes)} {tag}")
+    log("cli: wall per subcommand (in this process, set-up and checkpoint reads and writes "
+        "included; the fresh process imports, builds and restores too): " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items()))
+    log(f"cli: wrapper launches {totals}; phase 19 took {time.perf_counter() - start:.1f} s "
+        f"{tag}")
+    return {k: totals.get(k, 0) for k in PER_STEP}
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -3593,6 +3797,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_launches = run_int8(dev, tag, synth_rates, front_rates)
 
+    # ---- 19. the command line, in this process and in fresh ones ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_launches = run_cli(dev, tag)
+
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
         return {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -3614,10 +3823,12 @@ def main() -> int:
         # wrapper launches on the main paths: serve (4 requests) + train
         # (5 steps) + the loop's eager calls (2 captures' warm-up steps and
         # 3 samples' forwards) + frontalize (2 requests) + int8 (2 synthesis
-        # and 2 frontalize requests); the loop's graph replays run no
-        # wrapper (the traces of phases 11, 13, 17 and 18 show their kernels)
+        # and 2 frontalize requests) + the CLI (20 eager train steps, the
+        # graphed run's warm-up steps, synthesize, eval, frontalize); the
+        # graph replays run no wrapper (the traces of phases 11, 13, 17 and
+        # 18 show their kernels)
         "launches": (serve_launches[name] + train_launches[name] + loop_launches[name]
-                     + front_launches[name] + int8_launches[name]),
+                     + front_launches[name] + int8_launches[name] + cli_launches[name]),
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",
@@ -3639,7 +3850,8 @@ def main() -> int:
     })
     log("launches by path: " + "; ".join(
         f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "
-        f"{loop_launches[name]}, frontalize {front_launches[name]}, int8 {int8_launches[name]}"
+        f"{loop_launches[name]}, frontalize {front_launches[name]}, int8 {int8_launches[name]}, "
+        f"cli {cli_launches[name]}"
         for name in spec))
     log(json.dumps(kernel_line))
     log(f"device: {card}")

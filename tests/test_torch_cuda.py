@@ -1100,3 +1100,66 @@ def test_exported_synthesis_runs_on_the_card(cuda, tmp_path):
     live = make_synthesize_fn(cfg, gen)(batch, z)
     torch.backends.cudnn.deterministic = False
     assert float((out - live).abs().max()) <= 1e-5 * float(live.abs().max())
+
+
+# ---- the command line on the card -----------------------------------------
+
+CLI_SMALL = ["--set", "G.fm_multiplier=0.25", "--set", "G.local_feature_layer_dim=16",
+             "--set", "D.fm_multiplier=0.25"]
+BF16_PNG_LEVELS = 0.05 * 255  # the synthesis tests' bf16 bound, 5% of the range
+
+
+def test_cli_synthesize_on_the_card_against_the_cpu(cuda, tmp_path, monkeypatch):
+    """``synthesize`` from one checkpoint with the same z, ``--device cuda``
+    against ``--device cpu``: f32 (TF32 off) within 1 level on 99% of the
+    PNG's values, bf16 within 5% of the range; 3 K1 launches on the card."""
+    from tpgan_tpu_torch import cli
+    from tpgan_tpu_torch.data.imageio import read_png, write_png
+    from tpgan_tpu_torch.data.synthetic_faces import (
+        ALL_CAMERA_YAWS,
+        landmarks68_string,
+        render_face,
+    )
+    from tpgan_tpu_torch.train.checkpoint import save_checkpoint
+
+    _f32_exact()
+    cfg = make_config(dict(SMALL, compute_dtype="float32"))
+    state = create_gan_state(cfg, 0, "cpu")[0]
+    save_checkpoint(str(tmp_path / "ck"), 0, state)
+    img, lm5 = render_face(2, ALL_CAMERA_YAWS["140"], 160)
+    write_png(str(tmp_path / "probe.png"), img)
+    (tmp_path / "lm.txt").write_text(landmarks68_string(lm5))
+    # the CUDA and CPU generators draw different normals: one z for both
+    z = torch.randn((1, cfg.G.zdim), generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(cli, "draw_z", lambda seed, b, zdim, device: z.to(device))
+    outs = {}
+    for device, dtype in (("cpu", "float32"), ("cuda", "float32"), ("cuda", "bfloat16")):
+        out = str(tmp_path / f"{device}_{dtype}.png")
+        kernels.reset_launch_counts()
+        assert cli.main(["synthesize", "--image", str(tmp_path / "probe.png"), "--landmarks",
+                         str(tmp_path / "lm.txt"), "--checkpoint", str(tmp_path / "ck"),
+                         "--output", out, *CLI_SMALL, "--set", f"compute_dtype={dtype}",
+                         "--device", device]) == 0
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fuse_parts"] == (3 if device == "cuda" else 0)
+        outs[device, dtype] = read_png(out).astype(int)
+    torch.backends.cudnn.deterministic = False
+    f32 = np.abs(outs["cuda", "float32"] - outs["cpu", "float32"])
+    assert f32.max() <= 1 and (f32 > 0).mean() <= 0.01, (f32.max(), (f32 > 0).mean())
+    bf16 = np.abs(outs["cuda", "bfloat16"] - outs["cpu", "float32"])
+    assert bf16.max() <= BF16_PNG_LEVELS, bf16.max()
+
+
+def test_cli_without_a_visible_card_exits_3(cuda):
+    import os
+    import subprocess
+    import sys
+
+    from pathlib import Path
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", "tpgan_tpu_torch", "eval", "--img-list", "x"],
+                          env=env, capture_output=True, text=True, timeout=120,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 3, proc.stderr
+    assert "tpgan_tpu_torch eval: no CUDA device is available" in proc.stderr

@@ -34,6 +34,8 @@ FULL_STACK = ("ops/resize.py", "data/jit_preprocess.py", "api.py", "frontalize.p
 # int8 PTQ and the serving export (scanned with the rest; listed so a
 # move shows here)
 INT8_SERVING = ("ops/quant.py", "serving.py", "examples/int8_variants_probe.py")
+# the command line (scanned with the rest; listed so a move shows here)
+CLI = ("cli.py", "__main__.py")
 # PIL: the card's machine is not promised an imaging package
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpgan_tpu", "PIL")
 
@@ -75,6 +77,28 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_cli_is_scanned_and_its_help_loads_no_jax():
+    scanned = {p.relative_to(ROOT / "tpgan_tpu_torch").as_posix() for p in PORT_FILES
+               if ROOT / "tpgan_tpu_torch" in p.parents}
+    assert set(CLI) <= scanned
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['tpgan_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tpgan_tpu_torch', run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "assert 'tpgan_tpu_torch.cli' in sys.modules\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: tpgan_tpu_torch" in proc.stdout and "synthesize" in proc.stdout
 
 
 @pytest.fixture

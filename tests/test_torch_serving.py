@@ -147,11 +147,13 @@ def test_export_consumed_out_of_process(artifacts):
         "               for m in sys.modules), 'the framework leaked in'\n"
         "np.save(out_path, out.numpy())\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for variant, path in artifacts["paths"].items():
-        out_path = root / f"out_{variant}.npy"
-        subprocess.run([sys.executable, "-I", str(consumer), path, str(root), str(out_path)],
-                       check=True, env=env, cwd=str(root), timeout=300)
-        got = np.load(out_path)
+    # the two consumers run side by side
+    procs = {variant: subprocess.Popen([sys.executable, "-I", str(consumer), path, str(root),
+                                        str(root / f"out_{variant}.npy")], env=env, cwd=str(root))
+             for variant, path in artifacts["paths"].items()}
+    for variant, proc in procs.items():
+        assert proc.wait(timeout=300) == 0, variant
+        got = np.load(root / f"out_{variant}.npy")
         assert got.shape == (2, 128, 128, 3) and np.isfinite(got).all()
         _close(got, artifacts["loaded"][variant](batch, z))
 
