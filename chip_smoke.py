@@ -243,12 +243,32 @@ Phases, each of which exits non-zero on failure:
                  a fresh process (within the bf16 bound of the in-process
                  PNG) and one with ``CUDA_VISIBLE_DEVICES=`` (exit 3). Each
                  subcommand's wall time, and ``train``'s images/s.
+20. scale-out  — the data axis (``parallel/``): (a) a world of one over
+                 NCCL in this process, full size, bf16, batch 16:
+                 ``run_gan_training(mesh=make_mesh(...))`` for 2 eager
+                 steps and for one K = 2 dispatch (the NCCL all-reduces in
+                 the CUDA graph), each against the same run without a
+                 mesh (deterministic cuDNN, 4 ulps of each leaf's
+                 largest); ms per step with and without the mesh in
+                 turns, and the all-reduce's device time from a profile;
+                 (b) two ranks over gloo on this card (NCCL takes one
+                 rank per card): ``entry.dryrun_multichip(2, "gloo")``,
+                 the detector's step at 256 with synced BatchNorm on 2 x
+                 32 rows against one process at 64, and the full-size
+                 bf16 GAN step on 2 x 8 rows for 2 steps, each rank's
+                 kernel launches (7 / 2 / 1 / 1 per step) and its time,
+                 host-staged and not a data-parallel rate; (c) ``python3
+                 -m torch.distributed.run --nproc-per-node 1 -m
+                 tpgan_tpu_torch train --set mesh.data=1`` in a fresh
+                 interpreter, and ``mesh.data=2`` on that world of one,
+                 which exits non-zero with ``make_mesh``'s message; (d)
+                 no process of the phase left running.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
 phase 14's two loops, phase 15's steps and protocol runs, phase 16's
 two ``pretrain`` runs, phase 17's frontalize requests, phase 18's int8
-synthesis and int8 frontalize requests, and each of phase 19's
-subcommands) is driven
+synthesis and int8 frontalize requests, each of phase 19's
+subcommands, phase 20's mesh runs and each gloo rank's GAN steps) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
@@ -450,6 +470,25 @@ CLI_DISPATCH = 2
 DETECTOR_OVERRIDES = ["pretrain.train_data_ratio=0.85", "pretrain.validation_data_ratio=0.1",
                       "pretrain.log_step_of_batchs=5", "pretrain.num_epochs=2",
                       "pretrain.learning_rate_scheduler_milestone=(1,2)"]
+
+# phase 20: scale-out. (a) SCALE_EAGER_STEPS eager steps and one K = 2
+# dispatch through run_gan_training with and without a world-of-one NCCL
+# mesh, the states within SCALE_STATE_ULPS of each leaf's largest (phase
+# 7's bar: with one rank the all-reduce adds nothing and divides by 1);
+# SCALE_TIMED_STEPS steps per timing turn. (b) the detector's step on two
+# gloo ranks against one process: the parameters' movement within the
+# card-against-CPU bar of tests/test_torch_cuda.py (the seeded MobileNetV2
+# is ill-conditioned in f32; the CPU tests measured 8.7e-3 for two ranks
+# against float64) and the loss within 1e-3 of itself; SCALE_GAN_STEPS
+# full-size steps per rank. (c) the CLI's train under torchrun on a
+# protocol of SCALE_SUBJECTS subjects.
+SCALE_EAGER_STEPS = 2
+SCALE_STATE_ULPS = TRAIN_F32_GRAD_ULPS
+SCALE_TIMED_STEPS = 5
+SCALE_DETECTOR_MOVE_REL_L2 = 5e-2
+SCALE_DETECTOR_LOSS_RTOL = 1e-3
+SCALE_GAN_STEPS = 2
+SCALE_SUBJECTS = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -3517,6 +3556,380 @@ def run_cli(dev, tag):
     return {k: totals.get(k, 0) for k in PER_STEP}
 
 
+# --------------------------------------------------------------------------
+# phase 20: scale-out, the data axis (parallel/, the synced BatchNorm,
+# run_gan_training(mesh=)). NCCL takes one rank per card, so on one card
+# the two-rank runs are gloo's (host-staged collectives): they run the
+# real path in each rank, and no rate of theirs is a data-parallel rate.
+
+
+def _scale_rank(rank, n):
+    """A rank of phase 20 (b), in one spawned process: the detector's step
+    (``_detector_step_params``) in f32, then the GAN steps
+    (``_scale_gan_steps``) as bf16 asks."""
+    import torch
+
+    from tpgan_tpu_torch.config import MeshConfig
+    from tpgan_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(data=n))
+    _f32_exact(True)
+    detector = _detector_step_params(torch.device("cuda"), mesh)
+    _f32_exact(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return detector, _scale_gan_steps(rank, mesh)
+
+
+def _detector_step_params(dev, mesh):
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_pretrain_batch
+    from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    cfg = make_config({})
+    state, model, opt = create_pretrain_state(cfg, seed=0, device=dev)
+    step = make_pretrain_step(cfg, model, opt, mesh=mesh)
+    batch = synthetic_pretrain_batch(DETECTOR_BATCH, DETECTOR_SIZE, seed=0)
+    rows = slice(None) if mesh is None else mesh.rows(DETECTOR_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _state, metrics = step(state, batch["image"][rows], batch["label"][rows], gen)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach().cpu().numpy() for k, p in model.named_parameters()})
+
+
+def _scale_gan_steps(rank, mesh):
+    """The full-size bf16 GAN step on ``mesh``, this rank's 8 rows of a
+    global batch of 16, SCALE_GAN_STEPS steps. Returns the metrics, the
+    wrappers' launches of the steps (counts set to 0 just before) and the
+    ms per step (host-staged gloo collectives included)."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.parallel import place, replicated
+    from tpgan_tpu_torch.train.gan_trainer import create_gan_state, make_gan_train_step
+
+    dev = torch.device("cuda")
+    cfg = make_config({"compute_dtype": "bfloat16"})
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+    place(state, replicated(mesh))
+    step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=mesh)
+    batch = synthetic_gan_batch(TRAIN_BATCH, seed=0, num_classes=cfg.G.num_classes)
+    batch = {k: torch.as_tensor(v[mesh.rows(TRAIN_BATCH)], device=dev) for k, v in batch.items()}
+    generator = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SCALE_GAN_STEPS):
+        state, metrics = step(state, batch, generator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SCALE_GAN_STEPS
+    launches = kernels.launch_counts()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"rank {rank}: metrics {metrics}")
+    return {"metrics": metrics, "launches": launches, "ms": ms,
+            "rows": mesh.rows(TRAIN_BATCH).start}
+
+
+def _state_gap_ulps(a, b):
+    """The largest |a - b| over the leaves of two GAN states, in ulps of
+    each leaf's largest |value| in ``b``: {name: ulps}, its worst first."""
+    import torch
+
+    def leaves(s):
+        out = {f"gen.{k}": v for k, v in s.gen.state_dict().items()}
+        out.update({f"disc.{k}": v for k, v in s.disc.state_dict().items()})
+        out.update({f"ema.{k}": v for k, v in s.g_ema_params.items()})
+        return out
+
+    la, lb = leaves(a), leaves(b)
+    gaps = {}
+    for name, want in lb.items():
+        if not want.is_floating_point():
+            if not torch.equal(la[name], want):
+                raise AssertionError(f"{name} differs: {la[name]} vs {want}")
+            continue
+        scale = float(want.abs().max())
+        ulp = float(torch.finfo(want.dtype).eps) * max(scale, float(torch.finfo(want.dtype).tiny))
+        gaps[name] = float((la[name].float() - want.float()).abs().max()) / ulp
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1]))
+
+
+def _allreduce_device_ms(fn, iters):
+    """(device ms per call of the NCCL kernels in a profile of ``fn``, their
+    names); (None, []) when the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None, []
+    nccl = [e for e in device if "nccl" in e.name.lower()]
+    return (sum(e.time_range.elapsed_us() for e in nccl) / iters / 1e3,
+            sorted({e.name[:60] for e in nccl}))
+
+
+def scale_out_nccl(dev, tag):
+    """Phase 20 (a): a world of one over NCCL in this process, full size,
+    bf16, batch 16. ``run_gan_training`` for SCALE_EAGER_STEPS eager steps
+    and for one dispatch of K = 2 graphed steps (the NCCL all-reduces
+    captured), each with ``mesh=make_mesh(...)`` and without, from the same
+    seeded state (deterministic cuDNN): the states within
+    SCALE_STATE_ULPS of each leaf's largest. Then ms per step with and
+    without the mesh, in turns, and the all-reduce's device time from a
+    profile. Returns the wrappers' launches of the mesh runs."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.ops import kernels
+    from tpgan_tpu_torch.parallel import make_mesh
+    from tpgan_tpu_torch.parallel.distributed import free_port, maybe_initialize, shutdown
+    from tpgan_tpu_torch.train.gan_trainer import (
+        GRAPH_WARMUP_CALLS,
+        create_gan_state,
+        make_gan_train_step,
+    )
+    from tpgan_tpu_torch.train.loop import run_gan_training
+
+    cfg = make_config({"compute_dtype": "bfloat16", "train": {"batch_size": TRAIN_BATCH}})
+    batches = [synthetic_gan_batch(TRAIN_BATCH, seed=600 + i, num_classes=cfg.G.num_classes)
+               for i in range(4)]
+    totals = dict.fromkeys(PER_STEP, 0)
+    runs = {}  # (K, with the mesh) -> the final state
+
+    def run(k, mesh):
+        steps = SCALE_EAGER_STEPS if k == 1 else k
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        runs[k, mesh is not None] = run_gan_training(cfg, iter(batches), steps=steps,
+                                                     steps_per_dispatch=k, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {n: v * (steps if k == 1 else GRAPH_WARMUP_CALLS) for n, v in PER_STEP.items()}
+        if launches != want:
+            raise AssertionError(f"scale-out (a) K={k} mesh={mesh}: launches {launches}, "
+                                 f"expected {want}")
+        if mesh is not None:
+            for n, v in launches.items():
+                totals[n] += v
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for k in (1, 2):  # without a process group: no mesh at all
+        run(k, None)
+    maybe_initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                     device_index=dev.index or 0, timeout_s=300)
+    try:
+        mesh = make_mesh(cfg.mesh)
+        if mesh.shape != {"data": 1, "model": 1} or mesh.backend != "nccl":
+            raise AssertionError(f"scale-out (a): mesh {mesh}")
+        worst = {}
+        for k in (1, 2):
+            run(k, mesh)
+            gaps = _state_gap_ulps(runs[k, True], runs[k, False])
+            worst[k] = next(iter(gaps.items()))
+            if worst[k][1] > SCALE_STATE_ULPS:
+                raise AssertionError(f"scale-out (a) K={k}: the mesh run's state is "
+                                     f"{list(gaps.items())[:4]} ulps of each leaf's largest "
+                                     f"off the plain run's (bar {SCALE_STATE_ULPS})")
+        runs.clear()
+        torch.backends.cudnn.deterministic = False
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+        steps = {"plain": make_gan_train_step(cfg, gen, disc, g_opt, d_opt),
+                 "mesh": make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=mesh)}
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+        generator = torch.Generator(device=dev).manual_seed(0)
+        box = [state]
+
+        def step_once(name):
+            box[0], _m = steps[name](box[0], batch, generator)
+
+        for name in steps:
+            step_once(name)
+        times = {name: [] for name in steps}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCALE_TIMED_STEPS):
+                step_once(name)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / SCALE_TIMED_STEPS)
+        ar_ms, ar_names = _allreduce_device_ms(lambda: step_once("mesh"), 2)
+        del steps, box, state, gen, disc, g_opt, d_opt
+    finally:
+        shutdown()
+    log(f"scale-out (a): world of 1 over NCCL, full size bf16 batch {TRAIN_BATCH}: "
+        f"run_gan_training with mesh=make_mesh(...) against without, from the same seeded "
+        f"state (deterministic cuDNN): {SCALE_EAGER_STEPS} eager steps, worst leaf "
+        f"{worst[1][0]} {worst[1][1]:.2f} ulps of its largest; K=2 graphed (the NCCL "
+        f"all-reduces captured), worst {worst[2][0]} {worst[2][1]:.2f} ulps (bar "
+        f"{SCALE_STATE_ULPS}) {tag}")
+    log(f"scale-out (a): eager step, {SCALE_TIMED_STEPS} steps per turn, turns plain, mesh, "
+        f"mesh, plain: without the mesh {[round(t, 2) for t in times['plain']]} ms/step, with "
+        f"the mesh {[round(t, 2) for t in times['mesh']]} ms/step; all-reduce device time "
+        + (f"{ar_ms:.4f} ms/step in NCCL kernels {ar_names}" if ar_names else
+           "0: no NCCL kernel ran in the profiled steps (one rank's all-reduce launches none)"
+           if ar_ms is not None else "not measured (the profiler recorded no device time)")
+        + f" {tag}")
+    return totals, {"plain_ms": statistics.median(times["plain"]),
+                    "mesh_ms": statistics.median(times["mesh"]), "allreduce_ms": ar_ms}
+
+
+def scale_out_gloo(dev, tag):
+    """Phase 20 (b): two ranks over gloo on this one card. The data axis's
+    dryrun (``entry.dryrun_multichip(2, backend="gloo")``: the fm 0.25 f32
+    step against one process at the global batch, the full-size synthesis
+    by rows); the detector's f32 pretrain step (synced BatchNorm) at 256,
+    2 x 32 rows, against one process at 64; the full-size bf16 GAN step,
+    2 x 8 rows, SCALE_GAN_STEPS steps, each rank's K1, K1 backward, K2
+    and K2 backward launches. Returns the launches of both ranks' GAN
+    steps."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.entry import dryrun_multichip
+    from tpgan_tpu_torch.parallel.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, backend="gloo")
+    worst = max(abs(dry["metrics"][k] - v) / (1e-3 + 1e-3 * abs(v))
+                for k, v in dry["single"].items())
+    log(f"scale-out (b): dryrun_multichip(2, backend='gloo') on the card: 2 ranks x 2 rows at "
+        f"fm 0.25 f32 against one process at 4, worst metric at {worst:.3f} of the bar "
+        f"1e-3 + 1e-3|ref|; full-size f32 synthesis by rows max|delta| "
+        f"{dry['synthesis_max_abs_delta']:.2e} (bar 5e-4); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ranks = spawn(_scale_rank, 2, backend="gloo", device="cuda", args=(2,), timeout_s=600)
+    gan = [r[1] for r in ranks]
+    ranks = [r[0] for r in ranks]
+    _f32_exact(True)
+    start_params = {k: p.detach().cpu().numpy() for k, p in
+                    _fresh_detector_params(dev).items()}
+    single, params = _detector_step_params(dev, None)
+    _f32_exact(False)
+    for r in ranks[1:]:
+        if r[0] != ranks[0][0]:
+            raise AssertionError(f"scale-out (b) detector: ranks disagree {r[0]} {ranks[0][0]}")
+    move = lambda p: np.concatenate([(p[k] - start_params[k]).ravel() for k in start_params])
+    gap = float(np.linalg.norm(move(ranks[0][1]) - move(params)) / np.linalg.norm(move(params)))
+    loss_gap = abs(ranks[0][0]["loss"] - single["loss"]) / abs(single["loss"])
+    if gap > SCALE_DETECTOR_MOVE_REL_L2 or loss_gap > SCALE_DETECTOR_LOSS_RTOL:
+        raise AssertionError(f"scale-out (b) detector: 2 x 32 rows against one process at 64: "
+                             f"movement {gap:.3e} (bar {SCALE_DETECTOR_MOVE_REL_L2}), loss "
+                             f"{loss_gap:.3e} (bar {SCALE_DETECTOR_LOSS_RTOL})")
+    log(f"scale-out (b): detector f32 pretrain step at {DETECTOR_SIZE}, synced BatchNorm, 2 x "
+        f"{DETECTOR_BATCH // 2} rows over gloo against one process at {DETECTOR_BATCH}: loss "
+        f"{ranks[0][0]['loss']:.6f} vs {single['loss']:.6f} ({loss_gap:.2e} of it), parameter "
+        f"movement {gap:.3e} in relative L2 (bar {SCALE_DETECTOR_MOVE_REL_L2}); the ranks' "
+        f"process (this and the GAN steps below) {time.perf_counter() - t0:.1f} s")
+
+    ranks = gan
+    want = {n: v * SCALE_GAN_STEPS for n, v in PER_STEP.items()}
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            raise AssertionError(f"scale-out (b) GAN rank {r}: launches {out['launches']}, "
+                                 f"expected {want}")
+    if ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"scale-out (b) GAN: the ranks' global metrics differ "
+                             f"{ranks[0]['metrics']} {ranks[1]['metrics']}")
+    log(f"scale-out (b): full-size bf16 GAN step, 2 ranks x {TRAIN_BATCH // 2} rows over gloo "
+        f"on one card (host-staged collectives: not a data-parallel rate): "
+        f"{[round(r['ms'], 1) for r in ranks]} ms/step over {SCALE_GAN_STEPS} steps; g_loss "
+        f"{ranks[0]['metrics']['g_loss']:.4f}; launches per rank "
+        f"{[{n: v for n, v in r['launches'].items() if v} for r in ranks]} {tag}")
+    return {n: sum(r["launches"][n] for r in ranks) for n in PER_STEP}
+
+
+def _fresh_detector_params(dev):
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.train.pretrain import build_detector
+
+    return dict(build_detector(make_config({}), dev, seed=0).named_parameters())
+
+
+def scale_out_torchrun(dev, tag):
+    """Phase 20 (c): ``python3 -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m tpgan_tpu_torch train --set mesh.data=1`` in a
+    fresh interpreter (full size, bf16, batch 16, from a packed protocol
+    in device memory), then ``mesh.data=2`` on that world of one, which
+    must exit non-zero with make_mesh's message."""
+    from tpgan_tpu_torch.train.checkpoint import latest_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    walls = {}
+    with tempfile.TemporaryDirectory() as root:
+        line = _cli(["synth-data", "--out", root, "--protocol", "gan", "--subjects",
+                     str(SCALE_SUBJECTS), "--pack"], "synth-data", walls)
+        packed = json.loads(line[-1])["gan_packed"]
+        runs = {}
+        for data in (1, 2):
+            ck = os.path.join(root, f"ck{data}")
+            argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", "1", "-m", "tpgan_tpu_torch", "train", "--packed", packed,
+                    "--device-data", "--steps", "2", "--checkpoint", ck, "--log-dir",
+                    os.path.join(root, f"logs{data}"), "--set", f"mesh.data={data}",
+                    "--set", f"train.batch_size={TRAIN_BATCH}"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=300)
+            runs[data] = (proc, time.perf_counter() - t0, latest_step(ck))
+    ok, wall, step = runs[1]
+    if ok.returncode != 0 or step != 2:
+        raise AssertionError(f"torchrun train mesh.data=1: rc {ok.returncode}, checkpoint {step}: "
+                             f"{ok.stdout[-1000:]} {ok.stderr[-3000:]}")
+    bad, bad_wall, bad_step = runs[2]
+    if bad.returncode == 0 or "mesh 2x1 does not cover 1 devices" not in bad.stderr \
+            or bad_step is not None:
+        raise AssertionError(f"torchrun train mesh.data=2 on a world of one: rc "
+                             f"{bad.returncode}, checkpoint {bad_step}: {bad.stderr[-3000:]}")
+    log(f"scale-out (c): torchrun --nproc-per-node 1 -m tpgan_tpu_torch train --set "
+        f"mesh.data=1: 2 full-size bf16 steps at batch {TRAIN_BATCH}, checkpoint 2, "
+        f"{wall:.1f} s in a fresh interpreter; mesh.data=2 on that world of one: rc "
+        f"{bad.returncode} with make_mesh's 'mesh 2x1 does not cover 1 devices' "
+        f"({bad_wall:.1f} s) {tag}")
+
+
+def run_scale_out(dev, tag):
+    """Phase 20: (a) a world of one over NCCL, (b) two ranks over gloo on
+    this card, (c) torchrun in a fresh interpreter; (d) every process the
+    phase started has exited (``spawn`` joins its ranks, the torchrun
+    processes are waited for). Returns (the wrappers' launches of (a)'s
+    mesh runs, of (b)'s two GAN ranks, (a)'s timings)."""
+    from tpgan_tpu_torch.data.pipeline import stop_worker_server
+
+    start = time.perf_counter()
+    before = set(children())
+    nccl_launches, timings = scale_out_nccl(dev, tag)
+    gloo_launches = scale_out_gloo(dev, tag)
+    scale_out_torchrun(dev, tag)
+    # the resource tracker the spawned ranks' queue started (multiprocessing
+    # stops it only when this process exits)
+    stop_worker_server()
+    left = {pid: c for pid, c in children().items() if pid not in before and c[0] != "Z"}
+    if left:
+        raise AssertionError(f"scale-out: processes left running {left}")
+    log(f"scale-out: phase 20 took {time.perf_counter() - start:.1f} s")
+    return nccl_launches, gloo_launches, timings
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -3802,6 +4215,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_launches = run_cli(dev, tag)
 
+    # ---- 20. scale-out: the data axis over NCCL and gloo, and torchrun ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl_launches, gloo_launches, _scale_times = run_scale_out(dev, tag)
+
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
         return {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -3824,11 +4242,14 @@ def main() -> int:
         # (5 steps) + the loop's eager calls (2 captures' warm-up steps and
         # 3 samples' forwards) + frontalize (2 requests) + int8 (2 synthesis
         # and 2 frontalize requests) + the CLI (20 eager train steps, the
-        # graphed run's warm-up steps, synthesize, eval, frontalize); the
+        # graphed run's warm-up steps, synthesize, eval, frontalize) + the
+        # scale-out (the world-of-one NCCL loop's 2 eager steps and its
+        # graphed run's warm-up steps; both gloo ranks' 2 GAN steps); the
         # graph replays run no wrapper (the traces of phases 11, 13, 17 and
         # 18 show their kernels)
         "launches": (serve_launches[name] + train_launches[name] + loop_launches[name]
-                     + front_launches[name] + int8_launches[name] + cli_launches[name]),
+                     + front_launches[name] + int8_launches[name] + cli_launches[name]
+                     + nccl_launches[name] + gloo_launches[name]),
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",
@@ -3851,7 +4272,8 @@ def main() -> int:
     log("launches by path: " + "; ".join(
         f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "
         f"{loop_launches[name]}, frontalize {front_launches[name]}, int8 {int8_launches[name]}, "
-        f"cli {cli_launches[name]}"
+        f"cli {cli_launches[name]}, scale-out nccl {nccl_launches[name]}, scale-out gloo "
+        f"(2 ranks) {gloo_launches[name]}"
         for name in spec))
     log(json.dumps(kernel_line))
     log(f"device: {card}")

@@ -495,9 +495,10 @@ def test_train_device_data_yaw_weighted_sampler_is_jax_formula(packed, tmp_path,
     seen = {}
     real = packing.device_batch_iterator
 
-    def spy(data, batch_size, seed=0, weights=None):
+    def spy(data, batch_size, seed=0, weights=None, shard=None):
         seen["weights"], seen["n"] = weights, int(next(iter(data.values())).shape[0])
-        return real(data, batch_size, seed=seed, weights=weights)
+        seen["shard"] = shard
+        return real(data, batch_size, seed=seed, weights=weights, shard=shard)
 
     monkeypatch.setattr(packing, "device_batch_iterator", spy)
     gamma = 2.5
@@ -508,6 +509,7 @@ def test_train_device_data_yaw_weighted_sampler_is_jax_formula(packed, tmp_path,
     yaws = np.asarray([abs(JAX_YAWS.get(jax_camera_token(n), 0.0)) for n in names])
     want = 1.0 + gamma * (yaws / 90.0) ** 2  # tpgan_tpu/cli.py:279-283
     assert seen["n"] == len(names) == 16
+    assert seen["shard"] == (0, 1)  # one process: every row of each global batch
     np.testing.assert_array_equal(seen["weights"], want)
     assert want.max() > want.min()
 
@@ -515,9 +517,13 @@ def test_train_device_data_yaw_weighted_sampler_is_jax_formula(packed, tmp_path,
 def test_train_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit, match="requires --packed"):
         _train(tmp_path, "--device-data")
-    with pytest.raises(SystemExit, match="mesh.data=8.*more than one device.*A12"):
+    # one process is a world of one: make_mesh's refusal of a layout it
+    # does not cover, and the model axis, which waits for its own slice
+    with pytest.raises(SystemExit, match="mesh 8x1 does not cover 1 devices"):
         _train(tmp_path, "--set", "mesh.data=8")
-    with pytest.raises(SystemExit, match="mesh.model=2"):
+    with pytest.raises(SystemExit, match="mesh 2x1 does not cover 1 devices"):
+        _train(tmp_path, "--set", "mesh.data=2")
+    with pytest.raises(SystemExit, match="mesh.model=2.*model axis.*A12b"):
         _train(tmp_path, "--set", "mesh.model=2")
     assert not os.path.exists(tmp_path / "ck")
 

@@ -1163,3 +1163,61 @@ def test_cli_without_a_visible_card_exits_3(cuda):
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 3, proc.stderr
     assert "tpgan_tpu_torch eval: no CUDA device is available" in proc.stderr
+
+
+def _world_of_one_step(rank):
+    """A rank of the world-of-one case: one f32 SGD step at fm 0.25 from
+    seed 0, batch 4, without the NCCL mesh and with it, each on a fresh
+    state, after a throwaway step (a process's first f32 step differs in
+    the last bits, ROADMAP C2); TF32 off, deterministic cuDNN. Returns the
+    worst gradient leaf's gap in ulps of its largest, and the backend."""
+    from tpgan_tpu_torch.config import MeshConfig
+    from tpgan_tpu_torch.parallel import make_mesh
+    from tpgan_tpu_torch.train.gan_trainer import GANTrainState, build_models
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = torch.device("cuda")
+    cfg = make_config({"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
+                       "D": {"fm_multiplier": 0.25}, "compute_dtype": "float32"})
+    mesh = make_mesh(MeshConfig(data=1))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_gan_batch(4, seed=1).items()}
+
+    def grads(m):
+        gen, disc = build_models(cfg, dev, seed=0)
+        g_opt, d_opt = (torch.optim.SGD(x.parameters(), lr=1e-2) for x in (gen, disc))
+        step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=m)
+        step(GANTrainState(0, gen, disc, g_opt, d_opt), batch,
+             torch.Generator(device=dev).manual_seed(0))
+        return {n: p.grad for x in (gen, disc) for n, p in x.named_parameters()}
+
+    grads(None)
+    plain, meshed = grads(None), grads(mesh)
+    worst = 0.0
+    for name, a in plain.items():
+        ulp = float(torch.finfo(a.dtype).eps) * max(float(a.abs().max()), 1e-30)
+        worst = max(worst, float((a - meshed[name]).abs().max()) / ulp)
+    return worst, mesh.backend
+
+
+def test_world_of_one_nccl_step_equals_the_step_without_a_mesh(cuda):
+    """A world of one over NCCL (one spawned rank): the step's gradients
+    with the mesh (the gradient and metric all-reduces, a mean over one
+    rank) against those without, within 4 ulps of each leaf's largest
+    (chip_smoke.py's f32 gate)."""
+    from tpgan_tpu_torch.parallel.distributed import spawn
+
+    (worst, backend), = spawn(_world_of_one_step, 1, backend="nccl", device="cuda",
+                              timeout_s=600)
+    assert backend == "nccl"
+    assert worst <= 4, worst
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
+    """dryrun_multichip over two gloo ranks on one card (NCCL takes one
+    rank per card): the fm 0.25 f32 step against one process at the
+    global batch (JAX's bar), the full-size synthesis by rows (5e-4)."""
+    from tpgan_tpu_torch.entry import dryrun_multichip
+
+    out = dryrun_multichip(2, backend="gloo")
+    assert out["backend"] == "gloo" and out["synthesis_max_abs_delta"] <= 5e-4

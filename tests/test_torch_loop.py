@@ -156,5 +156,15 @@ def test_sample_fn_writes_grids_during_training(tmp_path):
 
 
 def test_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        run_gan_training(_cfg(), _batches(), steps=1, mesh=object(), device="cpu")
+    """The loop runs over a data-parallel mesh (tests/test_torch_parallel.py);
+    refused are a mesh whose data ranks do not divide the global batch,
+    and a model axis, which make_mesh refuses until its slice (A12b)."""
+    from tpgan_tpu_torch.config import MeshConfig
+    from tpgan_tpu_torch.parallel import make_mesh
+    from tpgan_tpu_torch.parallel.mesh import Mesh
+
+    three = Mesh({"data": 3, "model": 1}, ("data", "model"), None)
+    with pytest.raises(ValueError, match="not divisible by the data axis's 3 ranks"):
+        run_gan_training(_cfg(), _batches(), steps=1, mesh=three, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
+        make_mesh(MeshConfig(data=1, model=2), devices=[0, 1])

@@ -27,11 +27,17 @@ Checkpoints are the port's own (``train/checkpoint.py``:
 ``<dir>/<step>/state.pt``); an Orbax directory of the JAX package is not
 read here (``convert.load_jax_gan_state`` carries a JAX state across).
 
-Refused, with a message: a ``--set mesh.*`` that asks for more than one
-device (data parallelism waits for the port of ``parallel/``, ROADMAP
-A12), and an ``export --platforms`` other than one of ``cpu`` / ``cuda``
-(a ``.pt2`` artifact holds one device's program; there is no TPU
-lowering).
+``train`` is data-parallel under a launcher: ``torchrun --nproc-per-node
+N -m tpgan_tpu_torch train --set mesh.data=N`` runs N ranks, one card
+each (NCCL; gloo with ``--device cpu``), each loading its rows of every
+global batch of ``train.batch_size``. ``pretrain`` stays on one device,
+as the JAX CLI's passes no mesh.
+
+Refused, with a message: a ``--set mesh.model`` above 1 (the
+tensor-parallel model axis, ROADMAP A12b), a ``mesh.data`` that the ranks
+do not cover (``parallel.make_mesh``'s error), and an ``export
+--platforms`` other than one of ``cpu`` / ``cuda`` (a ``.pt2`` artifact
+holds one device's program; there is no TPU lowering).
 
 Three pieces of the JAX CLI have no counterpart: its persistent XLA
 compilation cache (``_enable_compile_cache``), its mirror of
@@ -158,13 +164,27 @@ def _frontalize_fn(cfg, detector, gen, args):
 
 
 def _refuse_mesh(cfg) -> None:
-    """The port trains on one device: a mesh over more is refused."""
-    m = cfg.mesh
-    if m.data not in (-1, 1) or m.model != 1:
+    """The port shards the data axis only: a model axis is refused."""
+    if cfg.mesh.model > 1:
         raise SystemExit(
-            f"mesh.data={m.data}, mesh.model={m.model} asks for more than one device; the "
-            "port trains on one (data parallelism waits for the port of parallel/, ROADMAP "
-            "A12): use mesh.data=-1 or 1 and mesh.model=1")
+            f"mesh.model={cfg.mesh.model}: the tensor-parallel model axis is not ported yet "
+            "(ROADMAP A12b); the port trains data-parallel only: use mesh.model=1")
+
+
+def _train_mesh(cfg, device):
+    """The data-parallel mesh of ``train``: the process group of a
+    launcher (``parallel.distributed.maybe_initialize``), laid out by
+    ``cfg.mesh``; a layout the ranks do not cover exits with
+    ``make_mesh``'s message."""
+    from tpgan_tpu_torch.parallel import make_mesh
+    from tpgan_tpu_torch.parallel.distributed import maybe_initialize
+
+    _refuse_mesh(cfg)
+    maybe_initialize(device=device)
+    try:
+        return make_mesh(cfg.mesh)
+    except ValueError as e:
+        raise SystemExit(f"tpgan_tpu_torch train: {e}") from e
 
 
 def yaw_sample_weights(names: List[str], gamma: float) -> np.ndarray:
@@ -263,14 +283,15 @@ def cmd_train(args) -> int:
 
     from tpgan_tpu_torch.data.multipie import TrainDataset
     from tpgan_tpu_torch.data.pipeline import batch_iterator, prefetch_to_device
+    from tpgan_tpu_torch.parallel.distributed import shutdown
     from tpgan_tpu_torch.train.loop import run_gan_training
     from tpgan_tpu_torch.train.metrics import MetricWriter
 
     cfg = _build_config(args)
-    _refuse_mesh(cfg)
     if args.device_data and not args.packed:
         raise SystemExit("--device-data requires --packed shards")
     device = args.device
+    mesh = _train_mesh(cfg, device)
     if args.packed:
         # packed uint8 shards: the batches cross to the device as uint8
         # and the step decodes them there
@@ -321,11 +342,11 @@ def cmd_train(args) -> int:
             print(f"[train] yaw-weighted sampling gamma={gamma}: max/min weight "
                   f"{sample_weights.max():.2f}/{sample_weights.min():.2f}", file=sys.stderr)
         batches = device_batch_iterator(data_dev, cfg.train.batch_size, seed=cfg.train.seed,
-                                        weights=sample_weights)
+                                        weights=sample_weights, shard=mesh.data_shard)
     else:
         batches = prefetch_to_device(
             batch_iterator(ds, cfg.train.batch_size, shuffle=True, epochs=None,
-                           pin_memory=device.type == "cuda"),
+                           pin_memory=device.type == "cuda", shard=mesh.data_shard),
             size=2, device=device)
 
     sample_fn = None
@@ -346,10 +367,11 @@ def cmd_train(args) -> int:
                 cfg, batches, steps=steps_total, identity_embed=identity_embed,
                 checkpoint_dir=args.checkpoint or cfg.train.checkpoint_dir,
                 resume=args.resume, writer=writer, steps_per_dispatch=args.steps_per_dispatch,
-                sample_fn=sample_fn, sample_every=args.sample_every, device=device)
+                sample_fn=sample_fn, sample_every=args.sample_every, device=device, mesh=mesh)
     finally:
         writer.close()
         _close(batches)
+        shutdown()  # leave the launcher's process group, if one was joined
     return 0
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tpgan_tpu_torch.data import native
+from tpgan_tpu_torch.parallel.sharding import shard_rows
 from tpgan_tpu_torch.utils.device import resolve_device
 
 INDEX_NAME = "index.json"
@@ -169,7 +170,7 @@ def load_packed_to_device(
 
 def device_batch_iterator(
     data: Dict[str, torch.Tensor], batch_size: int, seed: int = 0,
-    weights: Optional[np.ndarray] = None,
+    weights: Optional[np.ndarray] = None, shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite iterator over batches gathered on the device by random
     index from a device-resident dataset (:func:`load_packed_to_device`).
@@ -182,7 +183,11 @@ def device_batch_iterator(
 
     ``weights`` (len == dataset size, any positive scale) biases the
     sampling distribution — yaw-weighted sampling oversamples
-    extreme-pose items (``train.yaw_weight_gamma``)."""
+    extreme-pose items (``train.yaw_weight_gamma``).
+
+    ``shard`` = (r, n) (a mesh's ``data_shard``): every rank draws the same
+    global indices and gathers only its rows ``[r * b, (r + 1) * b)`` of
+    them, ``batch_size`` being the global batch."""
     first = next(iter(data.values()))
     n, device = int(first.shape[0]), first.device
     rng = np.random.RandomState(seed)
@@ -200,6 +205,8 @@ def device_batch_iterator(
             idx = rng.randint(0, n, size=(batch_size,))
         else:
             idx = rng.choice(n, size=(batch_size,), p=p)
+        if shard is not None:
+            idx = shard_rows(idx, shard)
         idx = torch.from_numpy(idx.astype(np.int64)).to(device)
         yield {k: v.index_select(0, idx) for k, v in data.items()}
 

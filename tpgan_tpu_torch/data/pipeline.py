@@ -16,12 +16,13 @@ from __future__ import annotations
 
 import collections
 import multiprocessing
-from typing import Any, Iterable, Iterator, List, Optional, Sequence, Union
+from typing import Any, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
+from tpgan_tpu_torch.parallel.sharding import shard_rows
 from tpgan_tpu_torch.utils.device import resolve_device
 
 
@@ -36,9 +37,11 @@ class _JaxOrder:
     ``drop_last`` a short tail chunk is skipped."""
 
     def __init__(self, idxs: List[int], batch_size: int, shuffle: bool, seed: int,
-                 drop_last: bool, epochs: Optional[int]):
+                 drop_last: bool, epochs: Optional[int],
+                 shard: Optional[Tuple[int, int]] = None):
         self.idxs, self.batch_size, self.shuffle = idxs, batch_size, shuffle
         self.seed, self.drop_last, self.epochs = seed, drop_last, epochs
+        self.shard = shard
 
     def __iter__(self) -> Iterator[List[int]]:
         rng = np.random.RandomState(self.seed)
@@ -51,7 +54,7 @@ class _JaxOrder:
                 chunk = order[start:start + self.batch_size]
                 if self.drop_last and len(chunk) < self.batch_size:
                     continue
-                yield chunk
+                yield chunk if self.shard is None else shard_rows(chunk, self.shard)
             epoch += 1
 
 
@@ -81,6 +84,7 @@ def batch_iterator(
     indices: Optional[Sequence[int]] = None,
     epochs: Optional[int] = None,
     pin_memory: bool = False,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Any]:
     """Yield stacked batches (dicts, tuples or tensors of CPU tensors)
     from an indexable dataset, in the order of the JAX package's
@@ -93,7 +97,11 @@ def batch_iterator(
     never touch CUDA. (``spawn`` workers end with a full interpreter
     shutdown, in which PyTorch aborted on a thread it still held.)
     ``pin_memory`` puts each batch in page-locked memory, so that
-    :func:`prefetch_to_device` copies it asynchronously."""
+    :func:`prefetch_to_device` copies it asynchronously.
+
+    ``shard`` = (r, n) (a mesh's ``data_shard``): every rank visits the
+    same global batches of ``batch_size`` and loads only its rows of each
+    (:func:`shard_rows`), as a data-parallel step takes them."""
     idxs = list(indices) if indices is not None else list(range(len(dataset)))
     if epochs is None and (not idxs or (drop_last and len(idxs) < batch_size)):
         raise ValueError(f"{len(idxs)} items make no batch of {batch_size} (drop_last="
@@ -107,7 +115,7 @@ def batch_iterator(
         context.set_forkserver_preload(["__main__", *_PRELOAD])
     loader = DataLoader(
         dataset,
-        batch_sampler=_JaxOrder(idxs, batch_size, shuffle, seed, drop_last, epochs),
+        batch_sampler=_JaxOrder(idxs, batch_size, shuffle, seed, drop_last, epochs, shard),
         collate_fn=_collate,
         num_workers=num_workers,
         pin_memory=pin_memory,

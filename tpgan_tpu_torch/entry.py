@@ -17,16 +17,22 @@ weights, seeded synthetic batches):
 * :func:`frontalize_entry` — full-stack frontalization
   (``frontalize.make_frontalize_fn``), raw uint8 frames to frontal faces:
   the full detector at 256 in f32 and the full-size generator in bf16,
-  a batch of 8 frames of 480x640."""
+  a batch of 8 frames of 480x640;
+* :func:`dryrun_multichip` — the counterpart of
+  ``__graft_entry__.dryrun_multichip`` on the data axis: one train step
+  over n spawned ranks against the same step in one process at the global
+  batch, and the full-size synthesis sharded by rows against one
+  process's."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from tpgan_tpu_torch.config import make_config
+from tpgan_tpu_torch.config import MeshConfig, make_config
 from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch, synthetic_pretrain_batch
 from tpgan_tpu_torch.data.synthetic_faces import render_face
 from tpgan_tpu_torch.frontalize import make_frontalize_fn
@@ -35,6 +41,8 @@ from tpgan_tpu_torch.models.feature_extract import (
     make_identity_embed_fn,
 )
 from tpgan_tpu_torch.ops.quant import calibrate_synthesis
+from tpgan_tpu_torch.parallel import make_mesh, place, replicated
+from tpgan_tpu_torch.parallel.distributed import spawn
 from tpgan_tpu_torch.train.gan_trainer import (
     build_generator,
     create_gan_state,
@@ -177,3 +185,92 @@ def frontalize_entry(device: Optional[Union[str, torch.device]] = None,
     z = torch.as_tensor(np.random.RandomState(1).standard_normal(
         (batch_size, cfg.G.zdim)).astype(np.float32), device=device)
     return fn, (images, z)
+
+
+DRYRUN_OVERRIDES = {"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
+                    "D": {"fm_multiplier": 0.25}, "compute_dtype": "float32"}
+DRYRUN_ROWS = 2  # per rank, as JAX's dryrun_multichip's batch of 2 n
+
+
+def _dryrun_step(device, n: int, mesh=None):
+    """JAX's dryrun step: fm 0.25, f32, seed 0, the synthetic batch of 2 n
+    (seed 0) and a step generator seeded 1; on a ``mesh``, this rank's
+    rows. Returns the metrics as floats."""
+    cfg = make_config(DRYRUN_OVERRIDES)
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=device)
+    step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=mesh)
+    batch = synthetic_gan_batch(DRYRUN_ROWS * n, seed=0)
+    if mesh is not None:
+        place(state, replicated(mesh))
+        batch = {k: v[mesh.rows(len(v))] for k, v in batch.items()}
+    _, metrics = step(state, batch, torch.Generator(device=device).manual_seed(1))
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _dryrun_synthesis(device, n: int, rows=slice(None)) -> np.ndarray:
+    """The full-size (fm 1.0) f32 synthesis of ``rows`` of the synthetic
+    batch of ``n`` (seed 0) with z = 0, generator seed 2."""
+    cfg = make_config({"compute_dtype": "float32"})
+    synthesize = make_synthesize_fn(cfg, build_generator(cfg, device, seed=2))
+    batch = {k: v[rows] for k, v in synthetic_gan_batch(n, seed=0).items() if k in PATCH_KEYS}
+    z = np.zeros((len(batch["img"]), cfg.G.zdim), np.float32)
+    return synthesize(batch, z).float().cpu().numpy()
+
+
+@contextlib.contextmanager
+def _f32_exact():
+    """float32 convolutions and products in float32 (no TF32 on the card),
+    as the JAX dryrun's CPU run computes them; restored on leaving."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _dryrun_rank(rank: int, n: int, device: str):
+    """One rank of :func:`dryrun_multichip`: (metrics, its synthesis rows)."""
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(2)
+    mesh = make_mesh(MeshConfig(data=n))
+    with _f32_exact():
+        metrics = _dryrun_step(torch.device(device), n, mesh)
+        return metrics, _dryrun_synthesis(torch.device(device), n, mesh.rows(n))
+
+
+def dryrun_multichip(n_devices: int, backend: Optional[str] = None,
+                     device: Optional[Union[str, torch.device]] = None) -> dict:
+    """One train step over ``n_devices`` spawned ranks (fm 0.25, f32, a
+    ``data`` mesh of n, batch 2 per rank), then the same step in this
+    process at the global batch from the same weights and draws, every
+    metric asserted equal within JAX's ``1e-3 + 1e-3 |ref|``
+    (``__graft_entry__.py:143``); then the full-size (fm 1.0) f32
+    synthesis of n images, each rank its row, against this process's,
+    within JAX's 5e-4; float32 throughout (no TF32). ``backend``: ``nccl`` on the card (one card per
+    rank: more ranks than cards raise) and ``gloo`` on the CPU unless
+    named; gloo on the card runs every rank on the cards in turn. On
+    ``cuda`` unless ``device`` says otherwise. Returns the metrics of both
+    sides and the synthesis gap."""
+    device = resolve_device(device)
+    backend = backend or ("gloo" if device.type == "cpu" else "nccl")
+    ranks = spawn(_dryrun_rank, n_devices, backend=backend, device=str(device),
+                  args=(n_devices, str(device)))
+    metrics = ranks[0][0]
+    for other, _rows in ranks[1:]:
+        if other != metrics:
+            raise AssertionError(f"ranks disagree on the global metrics: {metrics} vs {other}")
+    with _f32_exact():
+        ref = _dryrun_step(device, n_devices)
+        single = _dryrun_synthesis(device, n_devices)
+    for k, b in ref.items():
+        a = metrics[k]
+        if not (np.isfinite(a) and abs(a - b) <= 1e-3 + 1e-3 * abs(b)):
+            raise AssertionError(f"mesh-vs-single metric mismatch for {k}: {a} vs {b}")
+    sharded = np.concatenate([rows for _m, rows in ranks])
+    delta = float(np.max(np.abs(sharded - single)))
+    if delta > 5e-4:
+        raise AssertionError(f"full-size data-parallel synthesis mismatch: {delta}")
+    return {"mesh": {"data": n_devices, "model": 1}, "backend": backend, "metrics": metrics,
+            "single": ref, "synthesis_max_abs_delta": delta}
+

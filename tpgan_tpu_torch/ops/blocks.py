@@ -91,6 +91,7 @@ from tpgan_tpu_torch.ops.activations import (
     negative_slope,
 )
 from tpgan_tpu_torch.ops.resize import resize
+from tpgan_tpu_torch.parallel.collectives import all_reduce_sum
 
 Padding = Union[int, Tuple[int, int], Tuple[int, int, int, int]]
 
@@ -343,13 +344,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     running statistics. Train mode normalises with the batch statistics
     (biased variance) and advances the running ones (momentum 0.1,
     unbiased variance) unless ``advance_stats`` is False, which
-    :func:`frozen_batch_stats` sets."""
+    :func:`frozen_batch_stats` sets.
+
+    ``sync_mesh`` (set by :func:`sync_batch_stats`): a data-parallel mesh
+    of more than one rank, whose ranks each hold rows of one global batch.
+    Train mode then takes the global batch's statistics, JAX's
+    ``axis_name`` path (``:437-447``, which GSPMD takes for any BatchNorm
+    of a ``data``-sharded step): each rank's mean and biased variance,
+    gathered by one sum over the ranks
+    (``parallel.collectives.all_reduce_sum``, differentiable twice, so the
+    GP's double backward crosses the ranks) and merged (Chan et al.: the
+    mean of the means; the mean of the variances plus the variance of the
+    means); the running variance is unbiased with the global count.
+    Without one, the forward is torch's (cuDNN on the card)."""
 
     advance_stats: bool = True
+    sync_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        if self.training and not self.advance_stats:
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # a float64 model stays float64
+        if self.training and self.sync_mesh is not None:
+            y = self._synced(x32)
+        elif self.training and not self.advance_stats:
             # the advancing pass's op on copies of the statistics: it saves
             # the same tensors for backward, which torch.utils.checkpoint
             # asks of a recompute (train/gan_trainer.py's remat)
@@ -358,6 +374,39 @@ class BatchNorm2d(nn.BatchNorm2d):
         else:
             y = super().forward(x32)
         return y.to(x.dtype)
+
+    def _synced(self, x32: torch.Tensor) -> torch.Tensor:
+        mesh = self.sync_mesh
+        c = x32.shape[1]
+        n = x32.numel() // c * mesh.size
+        # Chan's merge of the ranks' (mean, biased var) at equal counts: the
+        # sums of x and x^2 lose the variance to cancellation in f32 where
+        # the mean is large against it (the detector's 2x2 maps at 128 px)
+        var_r, mean_r = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+        slot = torch.zeros((mesh.size, 1, 1), dtype=x32.dtype, device=x32.device)
+        slot[mesh.rank] = 1.0
+        ranks = all_reduce_sum(slot * torch.stack([mean_r, var_r]), mesh.group)
+        mean = ranks[:, 0].mean(0)
+        var = ranks[:, 1].mean(0) + (ranks[:, 0] - mean).square().mean(0)  # biased: it normalises
+        if self.advance_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+                self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shape = (1, c, 1, 1)
+        return (x32 - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+
+
+def sync_batch_stats(module: nn.Module, mesh) -> None:
+    """Sync every BatchNorm of ``module`` over ``mesh``'s data ranks
+    (``BatchNorm2d.sync_mesh``) when it has more than one; with one rank,
+    or none, each keeps the single-device forward."""
+    synced = mesh if mesh is not None and mesh.group is not None and mesh.size > 1 else None
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_mesh = synced
 
 
 @contextlib.contextmanager

@@ -8,7 +8,10 @@ a ``torch.save`` of the step and, for a GAN state, both models'
 (``train.pretrain.PretrainState``), the model's, the optimizer's and the
 learning-rate schedule's ``state_dict``; all copied to the host. It is
 written under a temporary name and renamed, so a directory named by a
-step always holds a whole checkpoint.
+step always holds a whole checkpoint. On a data-parallel mesh every rank
+holds the same state: rank 0 alone writes it, and every rank then waits
+at a barrier (``save_checkpoint(mesh=)``); every rank reads it back on a
+resume and takes rank 0's values (``parallel.place``).
 The JAX package's Orbax checkpoints do not load here; a JAX state comes
 across through ``tpgan_tpu_torch.convert.load_jax_gan_state``. One model's
 variables alone (the identity embedder's) are saved in the same layout
@@ -29,6 +32,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from tpgan_tpu_torch.parallel.distributed import barrier
 from tpgan_tpu_torch.train.gan_trainer import GANTrainState
 
 if TYPE_CHECKING:
@@ -100,7 +104,7 @@ _async_lock = threading.Lock()
 
 def save_checkpoint(
     directory: str, step: int, state: State, max_to_keep: int = 5,
-    block: bool = True,
+    block: bool = True, mesh=None,
 ) -> None:
     """Save ``state`` (a ``GANTrainState``: the step, both models, both
     optimizers, the EMA weights; or a ``PretrainState``: the step, the
@@ -112,7 +116,17 @@ def save_checkpoint(
     ``block=False`` the file is then written on a background thread, one
     per directory, and the training goes on; ``finalize_checkpoints`` (or
     the next blocking save to the directory) waits for the writes and
-    raises what failed in them."""
+    raises what failed in them.
+
+    ``mesh`` (a data-parallel ``parallel.Mesh``; every rank calls): rank 0
+    writes, blocking whatever ``block`` says, and every rank then waits at
+    a barrier, so no rank goes past the step before the checkpoint is on
+    disk."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_checkpoint(directory, step, state, max_to_keep)
+        barrier(mesh.group)
+        return
     directory = os.path.abspath(directory)
     if os.path.exists(os.path.join(directory, str(step))):
         raise FileExistsError(f"a checkpoint of step {step} exists under {directory}")

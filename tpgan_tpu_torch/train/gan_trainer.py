@@ -58,9 +58,12 @@ from tpgan_tpu_torch.ops.blocks import (
     frozen_batch_stats,
     reset_parameters,
     set_compute_dtype,
+    sync_batch_stats,
 )
 from tpgan_tpu_torch.ops.kernels import fuse_parts
 from tpgan_tpu_torch.ops.quant import SYNTHESIS_KEYS, make_int8_model
+from tpgan_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_metrics
+from tpgan_tpu_torch.parallel.mesh import data_group
 from tpgan_tpu_torch.train.optim import adam_wgan, make_capturable
 from tpgan_tpu_torch.utils import graphs
 from tpgan_tpu_torch.utils.device import resolve_device
@@ -287,6 +290,7 @@ def make_gan_train_step(
     g_opt: torch.optim.Optimizer,
     d_opt: torch.optim.Optimizer,
     identity_embed: Optional[IdentityEmbedFn] = None,
+    mesh=None,
 ):
     """The fused D+G train step ``train_step(state, batch, generator,
     noise=None) -> (state, metrics)``.
@@ -317,6 +321,19 @@ def make_gan_train_step(
     H100 80GB HBM3 at 700 W the full-size bf16 step peaks at 5.65-5.66
     GiB with ``both`` against 5.63-5.64 GiB without (``chip_smoke.py``
     phase 12, ``PERF.md`` §6). A remat per block is ROADMAP A16.
+
+    ``mesh`` (``parallel.make_mesh``): the step of JAX's ``data``-sharded
+    step, one per rank. ``batch`` is then this rank's rows of the global
+    batch (``mesh.rows``); every rank draws the global z, GP eps and
+    dropout masks from its generator (the same seed on every rank) and
+    keeps its rows, and ``noise`` holds global arrays, so N ranks compute
+    the step of one process at the global batch. Each phase's gradient
+    mean and the metrics are all-reduced (the metrics are global means),
+    and with more than one rank every train-mode BatchNorm takes the
+    global batch's statistics (``ops.blocks.sync_batch_stats``). With
+    accumulation, microbatch i is every rank's i-th local microbatch (the
+    global batch's rows in another order than JAX's contiguous split,
+    which GSPMD reshuffles across the ranks).
     """
     loss_cfg = cfg.loss
     zdim = cfg.G.zdim
@@ -334,14 +351,18 @@ def make_gan_train_step(
     rate = gen.feature_predict.dropout
     feature_dim = gen.feature_predict.fc.weight.shape[1]
     critic = _remat(disc, disc) if remat_critic else disc
+    group, rank, ranks = data_group(mesh)
+    sync_batch_stats(gen, mesh)
+    sync_batch_stats(disc, mesh)
 
     def draws(b: int, device, generator, noise):
-        """[z, gp_eps, drop_mask_d, drop_mask_g], each (accum, b / accum, ...)."""
+        """[z, gp_eps, drop_mask_d, drop_mask_g], each (accum, b / accum, ...):
+        on a mesh, this rank's rows of the global draws."""
         noise = dict(noise or {})
         unknown = set(noise) - set(NOISE_KEYS)
         if unknown:
             raise ValueError(f"unknown noise keys {sorted(unknown)}; expected {NOISE_KEYS}")
-        m = b // accum
+        m = b * ranks // accum
         makers = {
             "z": lambda: torch.randn((accum, m, zdim), generator=generator, device=device),
             "gp_eps": lambda: torch.rand((accum, m, 1, 1, 1), generator=generator, device=device),
@@ -355,6 +376,9 @@ def make_gan_train_step(
                 continue
             given = torch.as_tensor(noise[k], device=device)
             out.append(given.unsqueeze(0) if accum == 1 else given)
+        if ranks > 1:
+            local = m // ranks
+            out = [d[:, rank * local:(rank + 1) * local] for d in out]
         return out
 
     def g_forward(batch, z, mask):
@@ -444,8 +468,11 @@ def make_gan_train_step(
         return g_loss, comps
 
     def average_grads(params) -> None:
+        """The mean over the microbatches and, on a mesh, over the ranks."""
         if accum > 1:
             torch._foreach_div_([p.grad for p in params], float(accum))
+        if group is not None:
+            all_reduce_mean_([p.grad for p in params], group)
 
     def mean(values: List[torch.Tensor]) -> torch.Tensor:
         return values[0] if len(values) == 1 else torch.stack(values).mean(0)
@@ -485,11 +512,14 @@ def make_gan_train_step(
         metrics = {"d_loss": d_metrics.pop("d_loss"), "g_loss": mean([r[0] for r in g_runs]),
                    **d_metrics}
         metrics.update({f"g_{k}": mean([r[1][k] for r in g_runs]) for k in g_runs[0][1]})
+        if group is not None:  # the global means
+            return state, all_reduce_metrics(metrics, group)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     # the step's parts, for running one phase alone (the first-step bisect,
     # tpgan_tpu_torch/examples/first_step_bisect.py)
     train_step.prepare, train_step.d_phase, train_step.g_phase = prepare, d_phase, g_phase
+    train_step.mesh = mesh
     return train_step
 
 
@@ -533,9 +563,20 @@ def make_multi_step(train_step, num_steps: int):
     capture; nothing falls back to eager steps. Replays add nothing to
     ``ops.kernels.launch_counts``; ``multi_step.launches()`` is the
     capture's record of one replay. On the CPU it runs K eager steps (the
-    plain form)."""
+    plain form).
+
+    A step over a mesh (``make_gan_train_step(mesh=...)``) captures its
+    NCCL all-reduces in the graph. Over gloo it raises: gloo's
+    collectives go through the host, where a CUDA graph cannot hold them,
+    and K eager steps in their place would be another program than the
+    one asked for."""
     if num_steps < 1:
         raise ValueError(f"make_multi_step needs num_steps >= 1, got {num_steps}")
+    mesh = getattr(train_step, "mesh", None)
+    if mesh is not None and mesh.backend == "gloo":
+        raise RuntimeError(
+            "make_multi_step captures its K steps as one CUDA graph, which cannot hold gloo's "
+            "host-staged collectives: use an NCCL group, or one step per dispatch")
     captured: Dict[str, Any] = {}
 
     def split(super_batch: Batch) -> List[Dict[str, torch.Tensor]]:

@@ -1,7 +1,8 @@
-"""The GAN training loop — the port of ``tpgan_tpu/train/loop.py``
-on one device: the fused WGAN-GP step (K steps per host call as a CUDA
-graph on the card), metrics with images/s, NaN checks, sample grids, a
-``torch.profiler`` trace over a step window, and checkpoints with resume.
+"""The GAN training loop — the port of ``tpgan_tpu/train/loop.py``: the
+fused WGAN-GP step (K steps per host call as a CUDA graph on the card),
+data-parallel over the ranks of a mesh, metrics with images/s, NaN
+checks, sample grids, a ``torch.profiler`` trace over a step window, and
+checkpoints with resume.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from tpgan_tpu_torch.config import Config
+from tpgan_tpu_torch.parallel import batch_shardings, make_mesh, place, replicated
+from tpgan_tpu_torch.parallel.distributed import is_main_process, maybe_initialize
 from tpgan_tpu_torch.train.checkpoint import (
     finalize_checkpoints,
     latest_step,
@@ -83,13 +86,26 @@ def run_gan_training(
     (``<profile_dir>/trace.json``) from step ``profile_steps[0]`` to
     ``profile_steps[1]`` of this run.
 
-    ``device``: ``cuda`` unless asked otherwise. ``mesh`` is the JAX
-    loop's data-parallel mesh; the port runs on one device until DDP is
-    ported (ROADMAP A12), and raises when one is given."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_gan_training runs on one device; data parallelism over a mesh waits for "
-            "the port of parallel/ (ROADMAP A12)")
+    ``device``: ``cuda`` (the rank's own card) unless asked otherwise.
+
+    ``mesh`` (``parallel.make_mesh``): data parallelism over its ranks,
+    one process each, as JAX's loop shards over its mesh; when it is None
+    and ``parallel.distributed.maybe_initialize()`` finds a process group,
+    the mesh is built from ``cfg.mesh``, as JAX's loop always builds one.
+    ``train.batch_size`` is the global batch. ``batches`` yields global
+    batches, of which each rank keeps its rows (sliced where they lie,
+    before the copy to its device), or each rank's own rows (a sharded
+    iterator: ``data.pipeline.batch_iterator(shard=mesh.data_shard)``).
+    Every rank builds, or restores, the state and then takes rank 0's
+    (``place(state, replicated(mesh))``); the step all-reduces its
+    gradients and metrics (``make_gan_train_step(mesh=)``), so every
+    rank's NaN check sees the global metrics and raises with the others.
+    Rank 0 alone writes metrics, samples, traces and checkpoints; every
+    rank waits at a barrier after each checkpoint until it is on disk.
+    ``imgs_per_sec`` counts the global batch."""
+    if mesh is None and maybe_initialize():
+        mesh = make_mesh(cfg.mesh)
+    main = mesh is None or is_main_process()
     device = resolve_device(device)
     state, gen, disc, g_opt, d_opt = create_gan_state(cfg, cfg.train.seed, device)
     if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
@@ -97,9 +113,22 @@ def run_gan_training(
     elif cfg.train.resume_model:
         state = restore_gan_checkpoint(cfg.train.resume_model, state)
     start_step = int(state.step)
+    # the same on every rank (a rank that read the directory after rank 0's
+    # next write would skip the barrier that write's readers wait at)
+    saved_step = latest_step(checkpoint_dir) if checkpoint_dir else None
     generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+    global_batch = int(cfg.train.batch_size)
+    shard = None
+    if mesh is not None:
+        place(state, replicated(mesh))
+        mesh.rows(global_batch)  # raises when the data axis does not divide the batch
 
-    base_step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed)
+        def shard(batch):
+            if int(np.shape(batch["img"])[0]) != global_batch:
+                return batch  # already this rank's rows
+            return place(batch, batch_shardings(mesh, batch, cfg.mesh.data_axis))
+
+    base_step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, identity_embed, mesh=mesh)
     k = max(int(steps_per_dispatch), 1)
     step_fn = make_multi_step(base_step, k) if k > 1 else base_step
 
@@ -112,21 +141,23 @@ def run_gan_training(
     for batch in batch_iter:
         if i >= steps:
             break
-        if profile_dir is not None and profiler is None and i - start_step >= profile_steps[0] \
-                and i - start_step < profile_steps[1]:
+        if profile_dir is not None and main and profiler is None \
+                and profile_steps[0] <= i - start_step < profile_steps[1]:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=activities)
             profiler.start()
-        images = int(np.shape(batch["img"])[0]) * k
+        if shard is not None:
+            batch = shard(batch)
+        images = int(np.shape(batch["img"])[0]) * (mesh.size if mesh is not None else 1) * k
         if k > 1:
             stack = [batch]
             for _ in range(k - 1):
                 nxt = next(batch_iter, None)
                 if nxt is None:
                     break
-                stack.append(nxt)
+                stack.append(nxt if shard is None else shard(nxt))
             if len(stack) < k:
                 break  # not enough batches for a full dispatch
             batch = _stack(stack)
@@ -138,26 +169,29 @@ def run_gan_training(
         if profiler is not None and i - start_step >= profile_steps[1]:
             _stop_profile(profiler, profile_dir, device)
             profiler = None
-        if writer is not None and i % log_every == 0:
-            monitor.check(i, metrics)
-            host = dict(metrics)
-            host["imgs_per_sec"] = throughput.rate(metrics["g_loss"])
-            writer.write(i, host)
-            throughput.start()
-        if sample_fn is not None and sample_every and i % sample_every == 0:
+        if (writer is not None or mesh is not None) and i % log_every == 0:
+            monitor.check(i, metrics)  # global metrics: every rank raises together
+            if writer is not None and main:
+                host = dict(metrics)
+                host["imgs_per_sec"] = throughput.rate(metrics["g_loss"])
+                writer.write(i, host)
+                throughput.start()
+        if sample_fn is not None and main and sample_every and i % sample_every == 0:
             sample_fn(i, state)
         if (checkpoint_dir and cfg.train.checkpoint_every_steps
                 and i % cfg.train.checkpoint_every_steps == 0):
-            # copied to the host now, written in the background; ``i`` is
-            # the global step, so saves after a resume continue the numbering
-            save_checkpoint(checkpoint_dir, i, state, block=False)
+            # copied to the host now, written in the background (on a mesh,
+            # by rank 0 before a barrier); ``i`` is the global step, so saves
+            # after a resume continue the numbering
+            save_checkpoint(checkpoint_dir, i, state, block=False, mesh=mesh)
+            saved_step = i
     if profiler is not None:
         _stop_profile(profiler, profile_dir, device)
 
     if checkpoint_dir:
         finalize_checkpoints(checkpoint_dir)
-        if latest_step(checkpoint_dir) != int(state.step):
-            save_checkpoint(checkpoint_dir, int(state.step), state)
+        if saved_step != int(state.step):
+            save_checkpoint(checkpoint_dir, int(state.step), state, mesh=mesh)
     return state
 
 

@@ -5,7 +5,8 @@ Nothing in the step prints or reads a value back: the step returns 0-d
 device tensors, and the writer brings them to the host at a log step —
 to a ``metrics.jsonl`` always, and to TensorBoard when
 ``torch.utils.tensorboard`` imports. Throughput (images/s) is taken from
-a host clock bracketed by device synchronisations.
+a host clock bracketed by device synchronisations. In a data-parallel
+run only rank 0 writes (every rank's metrics are the same global means).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import time
 from typing import Any, Mapping, Optional
 
 import torch
+
+from tpgan_tpu_torch.parallel.distributed import is_main_process
 
 
 def _host_float(v: Any) -> float:
@@ -41,13 +44,16 @@ def _synchronize(x: Any) -> None:
 class MetricWriter:
     """Appends ``{"step": n, <metric>: <float>, ...}`` lines to
     ``<log_dir>/metrics.jsonl``, and scalars to TensorBoard when
-    ``use_tensorboard`` and ``torch.utils.tensorboard`` imports."""
+    ``use_tensorboard`` and ``torch.utils.tensorboard`` imports. On a rank
+    other than 0 of a process group it opens nothing and writes nothing."""
 
     def __init__(self, log_dir: str, use_tensorboard: bool = True):
-        os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
+        self._jsonl = self._tb = None
+        if not is_main_process():
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -57,6 +63,8 @@ class MetricWriter:
                 self._tb = SummaryWriter(log_dir=log_dir)
 
     def write(self, step: int, metrics: Mapping[str, Any]) -> None:
+        if self._jsonl is None:
+            return
         host = {k: _host_float(v) for k, v in metrics.items()}
         self._jsonl.write(json.dumps({"step": int(step), **host}) + "\n")
         self._jsonl.flush()
@@ -65,7 +73,8 @@ class MetricWriter:
                 self._tb.add_scalar(k, v, int(step))
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 

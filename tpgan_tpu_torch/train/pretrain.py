@@ -14,7 +14,7 @@
   ``log_step_of_batchs`` steps, per-epoch checkpoints, the best model by
   validation accuracy under ``best/`` with its bar in ``best_acc.json``,
   and a resume that restores the weights, the optimizer, the schedule
-  and the bar.
+  and the bar; data-parallel over the ranks of a ``mesh``.
 
 Checkpoints are ``train.checkpoint``'s one format (``<dir>/<step>/
 state.pt``); the detector's architecture knobs and the serving nose prior
@@ -36,7 +36,15 @@ from tpgan_tpu_torch.losses.decoder import decode_for_head_mode
 from tpgan_tpu_torch.losses.multitask import multitask_landmark_loss
 from tpgan_tpu_torch.models.mobilenet_v2 import MobileNetV2, anchor_centres
 from tpgan_tpu_torch.models.registry import get_model
-from tpgan_tpu_torch.ops.blocks import reset_parameters
+from tpgan_tpu_torch.ops.blocks import reset_parameters, sync_batch_stats
+from tpgan_tpu_torch.parallel import place, replicated
+from tpgan_tpu_torch.parallel.collectives import (
+    all_reduce_mean_,
+    all_reduce_metrics,
+    all_reduce_sum,
+)
+from tpgan_tpu_torch.parallel.mesh import data_group
+from tpgan_tpu_torch.parallel.distributed import barrier, is_main_process
 from tpgan_tpu_torch.train.optim import get_optimizer, multistep_lr
 from tpgan_tpu_torch.utils.device import resolve_device
 
@@ -198,7 +206,8 @@ def _loss_kwargs(cfg: Config, size_hw, device) -> dict:
 
 
 def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.Optimizer,
-                       scheduler: Optional[torch.optim.lr_scheduler.MultiStepLR] = None):
+                       scheduler: Optional[torch.optim.lr_scheduler.MultiStepLR] = None,
+                       mesh=None):
     """``step(state, images, labels, generator=None, *, u=None,
     return_aux=False) -> (state, metrics)``: one update on an NHWC batch
     (uint8 or f32 in [0, 1]) with (B, 8) labels. The image size comes
@@ -208,9 +217,19 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
     mode's decode of this forward), ``location_loss``,
     ``classification_loss``, ``num_positives``. ``return_aux=True`` adds
     a third result: the loss's assignment (``assigned``, ``keep_bg``) and
-    the forward's ``loc`` / ``cls``."""
+    the forward's ``loc`` / ``cls``.
+
+    ``mesh`` (``parallel.make_mesh``): one step of JAX's ``data``-sharded
+    step per rank. The batch is this rank's rows of the global batch;
+    the uniforms are drawn (or given) for the global batch and each rank
+    keeps its rows; BatchNorm takes the global batch's statistics
+    (``ops.blocks.sync_batch_stats``), the gradient mean and the metrics
+    are all-reduced (each loss term is a mean over images, so the mean of
+    the ranks' means is the global one)."""
     device = next(model.parameters()).device
     decode = decode_for_head_mode(cfg.pretrain.head_mode)
+    group, rank, ranks = data_group(mesh)
+    sync_batch_stats(model, mesh)
 
     def step(state: PretrainState, images, labels, generator: Optional[torch.Generator] = None,
              *, u: Optional[torch.Tensor] = None, return_aux: bool = False):
@@ -220,10 +239,17 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
         loc, cls = model(x)
         if u is not None:
             u = torch.as_tensor(u, device=device)
+        if ranks > 1:  # this rank's rows of the global draw
+            b = x.shape[0]
+            if u is None:
+                u = torch.rand((b * ranks, loc.shape[1]), generator=generator, device=device)
+            u = u[rank * b:(rank + 1) * b]
         loss, aux = multitask_landmark_loss(loc, cls, y, u, generator=generator,
                                             **_loss_kwargs(cfg, x.shape[2:], device))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None], group)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -235,6 +261,8 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
         metrics = {"loss": loss.detach(), "accuracy": acc,
                    **{k: aux[k].detach() for k in
                       ("location_loss", "classification_loss", "num_positives")}}
+        if group is not None:  # the global means
+            metrics = all_reduce_metrics(metrics, group)
         if return_aux:
             return state, metrics, {"assigned": aux["assigned"], "keep_bg": aux["keep_bg"],
                                     "loc": loc, "cls": cls}
@@ -243,21 +271,25 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
     return step
 
 
-def make_eval_step(cfg: Config, model: MobileNetV2):
+def make_eval_step(cfg: Config, model: MobileNetV2, mesh=None):
     """``eval_step(state, images, labels, generator=None, *, u=None) ->
     metrics``: the eval-mode forward (running BatchNorm statistics, no
     gradient), the loss (``val_loss``), the decode's banded accuracy
     (``val_accuracy``), and per part the mean pixel error of the valid
     decodes and their 5-px hit rate (``val_err_px_<part>``,
     ``val_within_5px_<part>``) with their means over parts
-    (``tpgan_tpu/train/pretrain.py:305-324``)."""
+    (``tpgan_tpu/train/pretrain.py:305-324``).
+
+    ``mesh``: the batch is the global one (host or device); each rank
+    takes its rows ``[r * v // N, (r + 1) * v // N)`` (a last batch need
+    not divide) and the uniforms' rows of the global draw, and the metrics
+    come from the sums over the ranks: the global batch's."""
     device = next(model.parameters()).device
     decode = decode_for_head_mode(cfg.pretrain.head_mode)
+    group, rank, ranks = data_group(mesh)
 
-    @torch.no_grad()
-    def eval_step(state: PretrainState, images, labels,
-                  generator: Optional[torch.Generator] = None, *,
-                  u: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    def forward(images, labels, u, generator):
+        """(loss, accuracy, part distances, valid decodes) of a batch."""
         x = decode_images(images, device)
         y = torch.as_tensor(labels, device=device).float()
         was_training = model.training
@@ -266,16 +298,45 @@ def make_eval_step(cfg: Config, model: MobileNetV2):
             loc, cls = model(x)
         finally:
             model.train(was_training)
-        if u is not None:
-            u = torch.as_tensor(u, device=device)
         total, _ = multitask_landmark_loss(loc, cls, y, u, generator=generator,
                                            **_loss_kwargs(cfg, x.shape[2:], device))
         decoded = decode(loc, cls)
         acc = landmark_accuracy(decoded.points, decoded.valid, y)
-        d, ok = _part_distances(decoded.points, decoded.valid, y)
-        n_ok = torch.clamp_min(ok.sum(dim=0), 1)
-        part_err = torch.where(ok, d, 0.0).sum(dim=0) / n_ok
-        part_in5 = (ok & (d <= 5.0)).sum(dim=0) / n_ok
+        return (total, acc, *_part_distances(decoded.points, decoded.valid, y))
+
+    def global_sums(images, labels, u, generator):
+        """[loss sum, accuracy sum, images, per part: error sum, hits
+        within 5 px, valid decodes] over every rank's rows."""
+        v = int(np.shape(images)[0])
+        rows = slice(rank * v // ranks, (rank + 1) * v // ranks)
+        if u is None:  # the global draw, the same on every rank
+            n = anchor_centres(tuple(np.shape(images)[1:3])).shape[0]
+            u = torch.rand((v, n), generator=generator, device=device)
+        sums = torch.zeros(15, device=device)
+        b = rows.stop - rows.start
+        if b:
+            total, acc, d, ok = forward(images[rows], labels[rows], u[rows], generator)
+            sums = torch.cat([torch.stack([total * b, acc * b, torch.full_like(total, b)]),
+                              torch.where(ok, d, 0.0).sum(dim=0),
+                              (ok & (d <= 5.0)).sum(dim=0), ok.sum(dim=0)]).float()
+        return all_reduce_sum(sums, group)
+
+    @torch.no_grad()
+    def eval_step(state: PretrainState, images, labels,
+                  generator: Optional[torch.Generator] = None, *,
+                  u: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        if u is not None:
+            u = torch.as_tensor(u, device=device)
+        if ranks > 1:
+            sums = global_sums(images, labels, u, generator)
+            total, acc = sums[0] / sums[2], sums[1] / sums[2]
+            err_sum, in5_sum, n_ok = sums[3:7], sums[7:11], torch.clamp_min(sums[11:15], 1)
+        else:
+            total, acc, d, ok = forward(images, labels, u, generator)
+            n_ok = torch.clamp_min(ok.sum(dim=0), 1)
+            err_sum, in5_sum = torch.where(ok, d, 0.0).sum(dim=0), (ok & (d <= 5.0)).sum(dim=0)
+        part_err = err_sum / n_ok
+        part_in5 = in5_sum / n_ok
         metrics = {"val_loss": total, "val_accuracy": acc,
                    "val_within_5px": part_in5.mean(), "val_err_px": part_err.mean()}
         for i, name in enumerate(PART_NAMES):
@@ -295,6 +356,7 @@ def run_pretrain(
     writer=None,
     checkpoint_dir: Optional[str] = None,
     seed: int = 0,
+    mesh=None,
     resume: bool = False,
     nose_prior: Optional[np.ndarray] = None,
     device: Optional[Union[str, torch.device]] = None,
@@ -310,20 +372,42 @@ def run_pretrain(
     the newest per-epoch checkpoint (weights, BatchNorm statistics,
     optimizer, schedule, step) and the bar, and continues the epoch
     schedule from there. Weights and the step's ``torch.Generator`` come
-    from ``seed``. ``device``: ``cuda`` unless asked otherwise."""
+    from ``seed``. ``device``: ``cuda`` unless asked otherwise.
+
+    ``mesh`` (``parallel.make_mesh``): data-parallel over its ranks, as
+    JAX's run with a mesh shards the batch over ``data``.
+    ``pretrain.batch_size`` and the batches are global: each rank keeps
+    its rows of a train batch (sliced where it lies, before the copy to
+    its device; a batch of the local size is taken as this rank's rows
+    already) and of a validation batch, and the validation metrics are
+    the global batch's. Every rank restores a resumed run and takes rank
+    0's state; rank 0 alone writes the sidecar, ``best/``,
+    ``best_acc.json`` and the per-epoch checkpoints, and every rank waits
+    at a barrier after each write and reads the bar."""
     from tpgan_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 
     device = resolve_device(device)
+    main = mesh is None or is_main_process()
     state, model, opt = create_pretrain_state(cfg, seed, device, steps_per_epoch)
-    if checkpoint_dir:
+    if checkpoint_dir and main:
         write_detector_meta(checkpoint_dir, cfg, nose_prior=nose_prior)
+    if mesh is not None:
+        barrier(mesh.group)
     if resume and checkpoint_dir:
         restore_checkpoint(checkpoint_dir, state)
         print(f"[pretrain] resumed from step {state.step} "
               f"(epoch {state.step // max(steps_per_epoch, 1)})")
-    train_step = make_pretrain_step(cfg, model, opt, state.scheduler)
-    eval_step = make_eval_step(cfg, model)
+    if mesh is not None:
+        place(state, replicated(mesh))
+    train_step = make_pretrain_step(cfg, model, opt, state.scheduler, mesh=mesh)
+    eval_step = make_eval_step(cfg, model, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(seed)
+
+    def local_rows(images, labels):
+        if mesh is None or int(np.shape(images)[0]) * mesh.size == cfg.pretrain.batch_size:
+            return images, labels
+        rows = mesh.rows(int(np.shape(images)[0]))
+        return images[rows], labels[rows]
 
     # the bar persists beside best/, so a resumed run does not overwrite a
     # better checkpoint with its first, possibly worse, validation
@@ -335,15 +419,18 @@ def run_pretrain(
         print(f"[pretrain] best-model bar restored: val_accuracy {best_acc:.4f}")
 
     step = state.step
+    # on every rank the same: a rank that read the directory after rank 0's
+    # next write would skip the barrier that write's readers wait at
+    saved_step = latest_step(checkpoint_dir) if checkpoint_dir else None
     for _epoch in range(step // max(steps_per_epoch, 1), cfg.pretrain.num_epochs):
         for _ in range(steps_per_epoch):
             try:
                 images, labels = next(train_batches)
             except StopIteration:
                 break
-            state, metrics = train_step(state, images, labels, generator)
+            state, metrics = train_step(state, *local_rows(images, labels), generator)
             step = state.step
-            if writer is not None and step % 10 == 0:
+            if writer is not None and main and step % 10 == 0:
                 writer.write(step, metrics)
             if val_batches_fn is not None and step % cfg.pretrain.log_step_of_batchs == 0:
                 sums: Dict[str, list] = {}
@@ -352,13 +439,16 @@ def run_pretrain(
                         sums.setdefault(k, []).append(float(v))
                 if sums:
                     val_acc = float(np.mean(sums["val_accuracy"]))
-                    if writer is not None:
+                    if writer is not None and main:
                         writer.write(step, {k: float(np.mean(v)) for k, v in sums.items()})
                     if checkpoint_dir and val_acc > best_acc:
                         best_acc = val_acc
-                        save_checkpoint(os.path.join(checkpoint_dir, "best"), step, state)
-                        with open(best_meta, "w") as f:
-                            json.dump({"best_acc": best_acc, "step": step}, f)
-        if checkpoint_dir and latest_step(checkpoint_dir) != step:
-            save_checkpoint(checkpoint_dir, step, state)
+                        save_checkpoint(os.path.join(checkpoint_dir, "best"), step, state,
+                                        mesh=mesh)
+                        if main:
+                            with open(best_meta, "w") as f:
+                                json.dump({"best_acc": best_acc, "step": step}, f)
+        if checkpoint_dir and saved_step != step:
+            save_checkpoint(checkpoint_dir, step, state, mesh=mesh)
+            saved_step = step
     return state
