@@ -252,7 +252,8 @@ Phases, each of which exits non-zero on failure:
                  largest); ms per step with and without the mesh in
                  turns, and the all-reduce's device time from a profile;
                  (b) two ranks over gloo on this card (NCCL takes one
-                 rank per card): ``entry.dryrun_multichip(2, "gloo")``,
+                 rank per card): ``entry.dryrun_multichip(2, "gloo")``
+                 (JAX's layout for two devices: ``{data: 1, model: 2}``),
                  the detector's step at 256 with synced BatchNorm on 2 x
                  32 rows against one process at 64, and the full-size
                  bf16 GAN step on 2 x 8 rows for 2 steps, each rank's
@@ -263,12 +264,33 @@ Phases, each of which exits non-zero on failure:
                  interpreter, and ``mesh.data=2`` on that world of one,
                  which exits non-zero with ``make_mesh``'s message; (d)
                  no process of the phase left running.
+21. model axis — tensor parallelism (``parallel/tensor_parallel.py``),
+                 gloo ranks sharing this card: (a)
+                 ``entry.dryrun_multichip(4, "gloo")`` on ``{data: 2,
+                 model: 2}``: the fm 0.25 f32 step against one process
+                 (``1e-3 + 1e-3|ref|``), the full-size f32 synthesis
+                 under dp+tp within 5e-4 (TF32 off), MiB of parameters +
+                 Adam per rank against one process's; (b) the full-size
+                 bf16 GAN step at batch 16 on ``{data: 1, model: 2}`` for
+                 2 steps: metrics finite, the gathered parameters' movement
+                 against one process's bf16 run, within TP_NOISE_FACTOR of
+                 the distance from that run to its f32 twin, each rank's
+                 launches (7 / 2 / 1 / 1 per step), ``per_device_bytes``
+                 below 0.8 of one process's, ``max_memory_allocated`` and
+                 ms per step (host-staged, not a tensor-parallel rate);
+                 (c) the detector's f32 step at 256 on ``{data: 1, model:
+                 2}`` against one process; (d) ``python3 -m
+                 torch.distributed.run --nproc-per-node 1 -m
+                 tpgan_tpu_torch train --set mesh.model=2``, which exits
+                 non-zero with ``make_mesh``'s "1 devices not divisible by
+                 model=2"; (e) no process of the phase left running.
 
 Counts are set to 0 just before each path (serve, train, conv A/B, loop,
 phase 14's two loops, phase 15's steps and protocol runs, phase 16's
 two ``pretrain`` runs, phase 17's frontalize requests, phase 18's int8
 synthesis and int8 frontalize requests, each of phase 19's
-subcommands, phase 20's mesh runs and each gloo rank's GAN steps) is driven
+subcommands, phase 20's mesh runs and each gloo rank's GAN steps, phase
+21's tensor-parallel ranks' GAN steps) is driven
 and read just after; launches made to compare a kernel with its
 plain version do not count. A CUDA graph's replays run no wrapper and
 count nothing (``ops.kernels.captured_launches``): the ``kernels`` line's
@@ -489,6 +511,21 @@ SCALE_DETECTOR_MOVE_REL_L2 = 5e-2
 SCALE_DETECTOR_LOSS_RTOL = 1e-3
 SCALE_GAN_STEPS = 2
 SCALE_SUBJECTS = 2
+# phase 21: the model axis. (b) TP_GAN_STEPS full-size bf16 steps on two
+# model ranks against one process. Adam's first steps move each weight by
+# about lr * sign(g), so a weight whose gradient is within bf16's noise of
+# 0 moves by +lr in one run and -lr in another: two bf16 runs that round
+# differently (the model ranks' partial sums, the bias added after the
+# gather) land far apart in the parameters' movement even when both are
+# right. The bar is that noise, measured in the same call: the ranks'
+# movement within TP_NOISE_FACTOR times the distance between one
+# process's bf16 and f32 (TF32 off) runs, in relative L2 (two runs each
+# that far from a third are at most twice that far from each other).
+# Each rank's parameters + Adam below TP_BYTES_SHARE of one process's
+# (tests/test_parallel.py:181).
+TP_GAN_STEPS = 2
+TP_NOISE_FACTOR = 2.0
+TP_BYTES_SHARE = 0.8
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -3792,10 +3829,11 @@ def scale_out_nccl(dev, tag):
 
 
 def scale_out_gloo(dev, tag):
-    """Phase 20 (b): two ranks over gloo on this one card. The data axis's
-    dryrun (``entry.dryrun_multichip(2, backend="gloo")``: the fm 0.25 f32
-    step against one process at the global batch, the full-size synthesis
-    by rows); the detector's f32 pretrain step (synced BatchNorm) at 256,
+    """Phase 20 (b): two ranks over gloo on this one card. JAX's dryrun
+    for two devices (``entry.dryrun_multichip(2, backend="gloo")``, whose
+    layout is JAX's ``{data: 1, model: 2}``: the fm 0.25 f32 step against
+    one process, the full-size synthesis under tp); the data axis's
+    detector f32 pretrain step (synced BatchNorm) at 256,
     2 x 32 rows, against one process at 64; the full-size bf16 GAN step,
     2 x 8 rows, SCALE_GAN_STEPS steps, each rank's K1, K1 backward, K2
     and K2 backward launches. Returns the launches of both ranks' GAN
@@ -3812,9 +3850,9 @@ def scale_out_gloo(dev, tag):
     dry = dryrun_multichip(2, backend="gloo")
     worst = max(abs(dry["metrics"][k] - v) / (1e-3 + 1e-3 * abs(v))
                 for k, v in dry["single"].items())
-    log(f"scale-out (b): dryrun_multichip(2, backend='gloo') on the card: 2 ranks x 2 rows at "
-        f"fm 0.25 f32 against one process at 4, worst metric at {worst:.3f} of the bar "
-        f"1e-3 + 1e-3|ref|; full-size f32 synthesis by rows max|delta| "
+    log(f"scale-out (b): dryrun_multichip(2, backend='gloo') on the card, JAX's layout "
+        f"{dry['mesh']}: fm 0.25 f32 step at batch 4 against one process, worst metric at "
+        f"{worst:.3f} of the bar 1e-3 + 1e-3|ref|; full-size f32 synthesis under tp max|delta| "
         f"{dry['synthesis_max_abs_delta']:.2e} (bar 5e-4); {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3928,6 +3966,306 @@ def run_scale_out(dev, tag):
         raise AssertionError(f"scale-out: processes left running {left}")
     log(f"scale-out: phase 20 took {time.perf_counter() - start:.1f} s")
     return nccl_launches, gloo_launches, timings
+
+
+# --------------------------------------------------------------------------
+# phase 21: the model axis (parallel/tensor_parallel.py). NCCL takes one
+# rank per card, so on one card the ranks are gloo's: the gathers and sums
+# go through the host, and no rate of theirs is a tensor-parallel rate.
+
+
+def _tp_gan_state(dev, mesh, compute_dtype="bfloat16"):
+    """The full-size GAN state (seed 0) in ``compute_dtype``, its step and
+    the batch of 16 (seed 0) on ``dev``; on a ``mesh``, placed by JAX's
+    default rule."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
+    from tpgan_tpu_torch.parallel import place, shard_gan_state
+    from tpgan_tpu_torch.train.gan_trainer import create_gan_state, make_gan_train_step
+
+    cfg = make_config({"compute_dtype": compute_dtype})
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=dev)
+    if mesh is not None:
+        place(state, shard_gan_state(mesh, state))
+    step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=mesh)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             synthetic_gan_batch(TRAIN_BATCH, seed=0, num_classes=cfg.G.num_classes).items()}
+    return state, step, batch
+
+
+def _gan_params(state):
+    """{model.name: the parameter on the host, float32}."""
+    return {f"{m}.{n}": p.detach().float().cpu() for m in ("gen", "disc")
+            for n, p in getattr(state, m).named_parameters()}
+
+
+def _params_opt_bytes(state):
+    from tpgan_tpu_torch.parallel import per_device_bytes
+
+    return per_device_bytes((list(state.gen.parameters()), list(state.disc.parameters()),
+                             state.g_opt, state.d_opt))
+
+
+def _tp_steps(state, step, batch, dev):
+    """TP_GAN_STEPS steps (the generator seeded 0), timed: (metrics of the
+    last, ms per step, the wrappers' launches, peak device bytes)."""
+    import torch
+
+    from tpgan_tpu_torch.ops import kernels
+
+    generator = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TP_GAN_STEPS):
+        state, metrics = step(state, batch, generator)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TP_GAN_STEPS
+    return ({k: float(v) for k, v in metrics.items()}, ms, kernels.launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def _movement_gap(got, start, want):
+    """{model: the relative L2 distance between the parameters' movement
+    from ``start`` in ``got`` and in ``want``} (host dicts of
+    ``_gan_params``; the squares summed in float64)."""
+    import numpy as np
+
+    out = {}
+    for model in ("gen", "disc"):
+        num = den = 0.0
+        for key in (k for k in start if k.startswith(model + ".")):
+            a, b = got[key] - start[key], want[key] - start[key]
+            num += float(((a - b).double() ** 2).sum())
+            den += float((b.double() ** 2).sum())
+        out[model] = float(np.sqrt(num / den))
+    return out
+
+
+def _tp_rank(rank, reference):
+    """A rank of phase 21 (b) and (c), in one spawned process: the
+    full-size bf16 GAN steps on {data: 1, model: 2} (the parameters
+    gathered whole and held against one process's file ``reference``),
+    then the detector's f32 step."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.config import MeshConfig
+    from tpgan_tpu_torch.parallel import make_mesh, whole
+    from tpgan_tpu_torch.parallel.tensor_parallel import sharded_layers
+
+    dev = torch.device("cuda")
+    mesh = make_mesh(MeshConfig(data=1, model=2))
+    state, step, batch = _tp_gan_state(dev, mesh)
+    kinds = [layer.tp.kind for m in (state.gen, state.disc) for _n, layer in sharded_layers(m)
+             if layer.tp is not None]
+    metrics, ms, launches, peak = _tp_steps(state, step, batch, dev)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"rank {rank}: metrics {metrics}")
+    nbytes = _params_opt_bytes(state)
+    with whole(state):
+        got = _gan_params(state)
+    ref = torch.load(reference, map_location="cpu", weights_only=True)
+    gaps = _movement_gap(got, ref["start"], ref["end"])
+    del ref, got, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _f32_exact(True)
+    detector = _tp_detector_step(dev, mesh)
+    _f32_exact(False)
+    return {"metrics": metrics, "ms": ms, "launches": launches, "peak": peak,
+            "bytes": nbytes, "gaps": gaps, "detector": detector,
+            "kinds": {k: kinds.count(k) for k in ("column", "row")}}
+
+
+def _tp_detector_step(dev, mesh):
+    """The detector's f32 step at 256 (phase 20's, batch DETECTOR_BATCH);
+    on a mesh with a model axis, placed by JAX's default rule. Returns the
+    metrics and the whole parameters after the step."""
+    import torch
+
+    from tpgan_tpu_torch.config import make_config
+    from tpgan_tpu_torch.data.synthetic import synthetic_pretrain_batch
+    from tpgan_tpu_torch.parallel import infer_param_shardings, place, whole
+    from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    cfg = make_config({})
+    state, model, opt = create_pretrain_state(cfg, seed=0, device=dev)
+    if mesh is not None:
+        place(state, infer_param_shardings(mesh, state))
+    step = make_pretrain_step(cfg, model, opt, mesh=mesh)
+    batch = synthetic_pretrain_batch(DETECTOR_BATCH, DETECTOR_SIZE, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _state, metrics = step(state, batch["image"], batch["label"], gen)
+    with whole(model):
+        params = {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
+    return {k: float(v) for k, v in metrics.items()}, params
+
+
+def tp_dryrun(dev, tag):
+    """Phase 21 (a): ``entry.dryrun_multichip(4, backend="gloo")``."""
+    import torch
+
+    from tpgan_tpu_torch.entry import dryrun_multichip
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, backend="gloo")
+    if dry["mesh"] != {"data": 2, "model": 2}:
+        raise AssertionError(f"model axis (a): dryrun_multichip(4) laid out {dry['mesh']}")
+    worst = max(abs(dry["metrics"][k] - v) / (1e-3 + 1e-3 * abs(v))
+                for k, v in dry["single"].items())
+    log(f"model axis (a): dryrun_multichip(4, backend='gloo') on the card, mesh {dry['mesh']}: "
+        f"fm 0.25 f32 step (min_shard_dim 64) at batch 8 against one process, worst metric at "
+        f"{worst:.3f} of the bar 1e-3 + 1e-3|ref|; full-size f32 synthesis under dp+tp "
+        f"max|delta| {dry['synthesis_max_abs_delta']:.2e} (bar 5e-4, TF32 off); params + Adam "
+        f"per rank {[round(m, 2) for m in dry['params_opt_mib']]} MiB against "
+        f"{dry['unsharded_params_opt_mib']:.2f} MiB in one process; "
+        f"{time.perf_counter() - t0:.1f} s {tag}")
+    return dry
+
+
+def tp_ranks(dev, tag):
+    """Phase 21 (b) and (c): one process's full-size bf16 steps (the
+    reference, written to a file), then two gloo ranks on this card
+    running the same steps on {data: 1, model: 2} and the detector's
+    step; the detector's one-process step last. Returns the launches of
+    both ranks' GAN steps."""
+    import numpy as np
+    import torch
+
+    from tpgan_tpu_torch.parallel.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, step, batch = _tp_gan_state(dev, None)
+    start = _gan_params(state)
+    single_metrics, single_ms, single_launches, single_peak = _tp_steps(state, step, batch, dev)
+    single_bytes = _params_opt_bytes(state)
+    end = _gan_params(state)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _f32_exact(True)  # the f32 twin: the bf16 run's own distance from f32
+    state, step, batch = _tp_gan_state(dev, None, "float32")
+    _tp_steps(state, step, batch, dev)
+    floor = _movement_gap(_gan_params(state), start, end)
+    _f32_exact(False)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        reference = os.path.join(root, "reference.pt")
+        torch.save({"start": start, "end": end}, reference)
+        del start, end
+        ranks = spawn(_tp_rank, 2, backend="gloo", device="cuda", args=(reference,),
+                      timeout_s=600)
+    wall = time.perf_counter() - t0
+    metric_gap = {k: abs(ranks[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in single_metrics.items()}
+    worst = max(metric_gap, key=metric_gap.get)
+    log(f"model axis (b): full-size bf16 GAN step, batch {TRAIN_BATCH}, {{data: 1, model: 2}} "
+        f"over gloo on one card (host-staged gathers and sums: not a tensor-parallel rate), "
+        f"{ranks[0]['kinds']} sharded weights: {[round(r['ms'], 1) for r in ranks]} ms/step "
+        f"against {single_ms:.1f} in one process, over {TP_GAN_STEPS} steps; g_loss "
+        f"{ranks[0]['metrics']['g_loss']:.4f} vs {single_metrics['g_loss']:.4f} (worst metric "
+        f"{worst} {metric_gap[worst]:.2e} of itself); parameter movement against one process's "
+        f"{[{m: f'{g:.3e}' for m, g in r['gaps'].items()} for r in ranks]} in relative L2, one "
+        f"process's bf16 run from its f32 twin {({m: f'{g:.3e}' for m, g in floor.items()})} "
+        f"(bar {TP_NOISE_FACTOR}x); params + Adam per rank "
+        f"{[round(r['bytes'] / 2**20, 1) for r in ranks]} MiB against "
+        f"{single_bytes / 2**20:.1f} MiB ({ranks[0]['bytes'] / single_bytes:.3f}); peak "
+        f"allocated per rank {[round(r['peak'] / 2**30, 2) for r in ranks]} GiB against "
+        f"{single_peak / 2**30:.2f} GiB; launches per rank "
+        f"{[{n: v for n, v in r['launches'].items() if v} for r in ranks]}; the ranks' "
+        f"process {wall:.1f} s {tag}")
+    want = {n: v * TP_GAN_STEPS for n, v in PER_STEP.items()}
+    if single_launches != want:
+        raise AssertionError(f"model axis (b): one process's launches {single_launches}")
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            raise AssertionError(f"model axis (b) rank {r}: launches {out['launches']}, "
+                                 f"expected {want}")
+        if out["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"model axis (b): the ranks' metrics differ {out['metrics']} "
+                                 f"{ranks[0]['metrics']}")
+        if any(out["gaps"][m] > TP_NOISE_FACTOR * floor[m] for m in floor):
+            raise AssertionError(f"model axis (b) rank {r}: parameter movement {out['gaps']} off "
+                                 f"one process's bf16 run in relative L2, more than "
+                                 f"{TP_NOISE_FACTOR} x its distance from f32 {floor}")
+        if out["bytes"] >= TP_BYTES_SHARE * single_bytes:
+            raise AssertionError(f"model axis (b) rank {r}: {out['bytes']} bytes of parameters + "
+                                 f"Adam against {single_bytes} in one process")
+
+    _f32_exact(True)
+    start_params = {k: p.detach().cpu().numpy() for k, p in
+                    _fresh_detector_params(dev).items()}
+    single, params = _tp_detector_step(dev, None)
+    _f32_exact(False)
+    move = lambda p: np.concatenate([(p[k] - start_params[k]).ravel() for k in start_params])
+    gaps = [float(np.linalg.norm(move(out["detector"][1]) - move(params))
+                  / np.linalg.norm(move(params))) for out in ranks]
+    loss_gaps = [abs(out["detector"][0]["loss"] - single["loss"]) / abs(single["loss"])
+                 for out in ranks]
+    log(f"model axis (c): detector f32 pretrain step at {DETECTOR_SIZE}, batch "
+        f"{DETECTOR_BATCH}, {{data: 1, model: 2}} over gloo against one process: loss "
+        f"{ranks[0]['detector'][0]['loss']:.6f} vs {single['loss']:.6f} "
+        f"({[f'{g:.2e}' for g in loss_gaps]} of it), parameter movement "
+        f"{[f'{g:.3e}' for g in gaps]} in relative L2 (bar {SCALE_DETECTOR_MOVE_REL_L2}) {tag}")
+    if max(gaps) > SCALE_DETECTOR_MOVE_REL_L2 or max(loss_gaps) > SCALE_DETECTOR_LOSS_RTOL:
+        raise AssertionError(f"model axis (c) detector: movement {gaps} (bar "
+                             f"{SCALE_DETECTOR_MOVE_REL_L2}), loss {loss_gaps} (bar "
+                             f"{SCALE_DETECTOR_LOSS_RTOL})")
+    return {n: sum(r["launches"][n] for r in ranks) for n in PER_STEP}
+
+
+def tp_torchrun(dev, tag):
+    """Phase 21 (d): ``python3 -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m tpgan_tpu_torch train --set mesh.model=2`` in a
+    fresh interpreter: a world of one cannot hold a model axis of 2, and
+    the run exits non-zero with make_mesh's message before any data."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        ck = os.path.join(root, "ck")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1", "-m", "tpgan_tpu_torch", "train", "--steps", "1",
+                "--checkpoint", ck, "--log-dir", os.path.join(root, "logs"),
+                "--set", "mesh.model=2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        wrote = os.path.exists(ck)
+    if proc.returncode == 0 or "1 devices not divisible by model=2" not in proc.stderr or wrote:
+        raise AssertionError(f"torchrun train mesh.model=2 on a world of one: rc "
+                             f"{proc.returncode}, checkpoint dir {wrote}: {proc.stderr[-3000:]}")
+    log(f"model axis (d): torchrun --nproc-per-node 1 -m tpgan_tpu_torch train --set "
+        f"mesh.model=2: rc {proc.returncode} with make_mesh's '1 devices not divisible by "
+        f"model=2' ({wall:.1f} s) {tag}")
+
+
+def run_model_axis(dev, tag):
+    """Phase 21: (a) the dryrun on {data: 2, model: 2}, (b) + (c) two model
+    ranks' full-size GAN steps and detector step, (d) the CLI's refusal
+    under torchrun; (e) every process the phase started has exited.
+    Returns the wrappers' launches of (b)'s two ranks."""
+    from tpgan_tpu_torch.data.pipeline import stop_worker_server
+
+    start = time.perf_counter()
+    before = set(children())
+    tp_dryrun(dev, tag)
+    launches = tp_ranks(dev, tag)
+    tp_torchrun(dev, tag)
+    stop_worker_server()
+    left = {pid: c for pid, c in children().items() if pid not in before and c[0] != "Z"}
+    if left:
+        raise AssertionError(f"model axis: processes left running {left}")
+    log(f"model axis: phase 21 took {time.perf_counter() - start:.1f} s")
+    return launches
 
 
 def profile(fn, iters, what, unit, tag, names, before=None):
@@ -4220,6 +4558,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     nccl_launches, gloo_launches, _scale_times = run_scale_out(dev, tag)
 
+    # ---- 21. the model axis: tensor parallelism over gloo ranks ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = run_model_axis(dev, tag)
+
     def main_path(name, batch):
         sel = [r for r in rows if r["name"] == name and r["batch"] == batch]
         return {k: sum(r[k] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -4244,12 +4587,13 @@ def main() -> int:
         # and 2 frontalize requests) + the CLI (20 eager train steps, the
         # graphed run's warm-up steps, synthesize, eval, frontalize) + the
         # scale-out (the world-of-one NCCL loop's 2 eager steps and its
-        # graphed run's warm-up steps; both gloo ranks' 2 GAN steps); the
-        # graph replays run no wrapper (the traces of phases 11, 13, 17 and
-        # 18 show their kernels)
+        # graphed run's warm-up steps; both gloo ranks' 2 GAN steps) + the
+        # model axis (both tensor-parallel ranks' 2 GAN steps); the graph
+        # replays run no wrapper (the traces of phases 11, 13, 17 and 18
+        # show their kernels)
         "launches": (serve_launches[name] + train_launches[name] + loop_launches[name]
                      + front_launches[name] + int8_launches[name] + cli_launches[name]
-                     + nccl_launches[name] + gloo_launches[name]),
+                     + nccl_launches[name] + gloo_launches[name] + tp_launches[name]),
         "max_abs_err": errors[name],
         **main_path(name, batch),
         "bound_by": "bytes",
@@ -4273,7 +4617,7 @@ def main() -> int:
         f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "
         f"{loop_launches[name]}, frontalize {front_launches[name]}, int8 {int8_launches[name]}, "
         f"cli {cli_launches[name]}, scale-out nccl {nccl_launches[name]}, scale-out gloo "
-        f"(2 ranks) {gloo_launches[name]}"
+        f"(2 ranks) {gloo_launches[name]}, model axis (2 ranks) {tp_launches[name]}"
         for name in spec))
     log(json.dumps(kernel_line))
     log(f"device: {card}")

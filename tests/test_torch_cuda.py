@@ -1215,9 +1215,13 @@ def test_world_of_one_nccl_step_equals_the_step_without_a_mesh(cuda):
 
 def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     """dryrun_multichip over two gloo ranks on one card (NCCL takes one
-    rank per card): the fm 0.25 f32 step against one process at the
-    global batch (JAX's bar), the full-size synthesis by rows (5e-4)."""
+    rank per card), JAX's layout for two devices ({data: 1, model: 2}):
+    the fm 0.25 f32 step against one process at the global batch (JAX's
+    bar), the full-size synthesis under tensor parallelism (5e-4), each
+    rank's parameters + Adam below 0.8 of one process's."""
     from tpgan_tpu_torch.entry import dryrun_multichip
 
     out = dryrun_multichip(2, backend="gloo")
     assert out["backend"] == "gloo" and out["synthesis_max_abs_delta"] <= 5e-4
+    assert out["mesh"] == {"data": 1, "model": 2}
+    assert max(out["params_opt_mib"]) < 0.8 * out["unsharded_params_opt_mib"]

@@ -156,9 +156,10 @@ def test_sample_fn_writes_grids_during_training(tmp_path):
 
 
 def test_a_mesh_is_refused():
-    """The loop runs over a data-parallel mesh (tests/test_torch_parallel.py);
-    refused are a mesh whose data ranks do not divide the global batch,
-    and a model axis, which make_mesh refuses until its slice (A12b)."""
+    """The loop runs over a (data, model) mesh (tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py); refused are a mesh whose data
+    ranks do not divide the global batch, and a model axis that one
+    process cannot hold (make_mesh's JAX error)."""
     from tpgan_tpu_torch.config import MeshConfig
     from tpgan_tpu_torch.parallel import make_mesh
     from tpgan_tpu_torch.parallel.mesh import Mesh
@@ -166,5 +167,5 @@ def test_a_mesh_is_refused():
     three = Mesh({"data": 3, "model": 1}, ("data", "model"), None)
     with pytest.raises(ValueError, match="not divisible by the data axis's 3 ranks"):
         run_gan_training(_cfg(), _batches(), steps=1, mesh=three, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
-        make_mesh(MeshConfig(data=1, model=2), devices=[0, 1])
+    with pytest.raises(ValueError, match="^1 devices not divisible by model=2$"):
+        make_mesh(MeshConfig(data=1, model=2))

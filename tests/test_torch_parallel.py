@@ -24,8 +24,8 @@ two overlap; each comparison below is its own case:
   step at 128 and ``run_gan_training`` / ``run_pretrain`` over the mesh
   against the port in one process at the global batch (the bars are
   stated at each);
-* the refusals: a model axis, a mesh the ranks do not cover, a global
-  batch the ranks do not divide, ``make_multi_step`` over gloo, a
+* the refusals: a mesh the ranks do not cover (a model axis too), a
+  global batch the ranks do not divide, ``make_multi_step`` over gloo, a
   ``maybe_initialize`` that cannot reach its coordinator.
 """
 
@@ -224,7 +224,11 @@ def test_make_mesh_one_process():
     assert mesh.data_shard == (0, 1) and mesh.backend is None
     with pytest.raises(ValueError, match="mesh 2x1 does not cover 1 devices"):
         make_mesh(MeshConfig(data=2))
-    with pytest.raises(NotImplementedError, match="model axis.*A12b"):
+    # a model axis over ranks the world does not have: JAX's refusal of a
+    # one-chip host (the model axis runs in tests/test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="^1 devices not divisible by model=2$"):
+        make_mesh(MeshConfig(data=-1, model=2))
+    with pytest.raises(ValueError, match="does not cover the world's 1 ranks"):
         make_mesh(MeshConfig(data=-1, model=2), devices=[0, 1])
     with pytest.raises(ValueError, match="does not cover the world"):
         make_mesh(MeshConfig(data=2), devices=[0, 1])

@@ -27,17 +27,19 @@ Checkpoints are the port's own (``train/checkpoint.py``:
 ``<dir>/<step>/state.pt``); an Orbax directory of the JAX package is not
 read here (``convert.load_jax_gan_state`` carries a JAX state across).
 
-``train`` is data-parallel under a launcher: ``torchrun --nproc-per-node
-N -m tpgan_tpu_torch train --set mesh.data=N`` runs N ranks, one card
-each (NCCL; gloo with ``--device cpu``), each loading its rows of every
-global batch of ``train.batch_size``. ``pretrain`` stays on one device,
-as the JAX CLI's passes no mesh.
+``train`` is data- and tensor-parallel under a launcher: ``torchrun
+--nproc-per-node N -m tpgan_tpu_torch train --set mesh.data=D --set
+mesh.model=M`` (D x M = N) runs N ranks, one card each (NCCL; gloo with
+``--device cpu``), the ranks of a model group sharing a data index's
+rows of every global batch of ``train.batch_size`` and holding slices of
+the weights JAX's rule shards. ``pretrain`` stays on one device, as the
+JAX CLI's passes no mesh.
 
-Refused, with a message: a ``--set mesh.model`` above 1 (the
-tensor-parallel model axis, ROADMAP A12b), a ``mesh.data`` that the ranks
-do not cover (``parallel.make_mesh``'s error), and an ``export
---platforms`` other than one of ``cpu`` / ``cuda`` (a ``.pt2`` artifact
-holds one device's program; there is no TPU lowering).
+Refused, with a message: a ``mesh`` layout that the ranks do not cover
+(``parallel.make_mesh``'s error, JAX's: "1 devices not divisible by
+model=2"), and an ``export --platforms`` other than one of ``cpu`` /
+``cuda`` (a ``.pt2`` artifact holds one device's program; there is no
+TPU lowering).
 
 Three pieces of the JAX CLI have no counterpart: its persistent XLA
 compilation cache (``_enable_compile_cache``), its mirror of
@@ -163,23 +165,14 @@ def _frontalize_fn(cfg, detector, gen, args):
     )
 
 
-def _refuse_mesh(cfg) -> None:
-    """The port shards the data axis only: a model axis is refused."""
-    if cfg.mesh.model > 1:
-        raise SystemExit(
-            f"mesh.model={cfg.mesh.model}: the tensor-parallel model axis is not ported yet "
-            "(ROADMAP A12b); the port trains data-parallel only: use mesh.model=1")
-
-
 def _train_mesh(cfg, device):
-    """The data-parallel mesh of ``train``: the process group of a
+    """The (data, model) mesh of ``train``: the process group of a
     launcher (``parallel.distributed.maybe_initialize``), laid out by
     ``cfg.mesh``; a layout the ranks do not cover exits with
     ``make_mesh``'s message."""
     from tpgan_tpu_torch.parallel import make_mesh
     from tpgan_tpu_torch.parallel.distributed import maybe_initialize
 
-    _refuse_mesh(cfg)
     maybe_initialize(device=device)
     try:
         return make_mesh(cfg.mesh)

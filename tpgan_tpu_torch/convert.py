@@ -238,7 +238,18 @@ def load_jax_gan_state(arrays: Mapping[str, Any], state: "GANTrainState") -> "GA
     maps and ``count`` becomes ``step``. As ``restore_gan_checkpoint``
     does, a state that tracks EMA where the JAX one does not starts its
     EMA from the loaded weights, and JAX EMA weights the state does not
-    track are dropped."""
+    track are dropped. A state sharded over a mesh's model axis takes
+    each rank's slices of the whole tensors (``parallel.whole``; every rank
+    of the model group calls); the usual order is to load the whole state,
+    then place it (``parallel.place(state, parallel.shard_gan_state(mesh,
+    state))``)."""
+    from tpgan_tpu_torch.parallel.sharding import whole
+
+    with whole(state):
+        return _load_jax_gan_state(arrays, state)
+
+
+def _load_jax_gan_state(arrays: Mapping[str, Any], state: "GANTrainState") -> "GANTrainState":
     tree = _unflatten(arrays)
     gen_sd = jax_generator_params_to_state_dict(tree["g_params"], tree.get("g_batch_stats"))
     disc_sd = jax_critic_params_to_state_dict(tree["d_params"], tree.get("d_batch_stats"))

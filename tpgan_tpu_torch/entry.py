@@ -19,9 +19,10 @@ weights, seeded synthetic batches):
   the full detector at 256 in f32 and the full-size generator in bf16,
   a batch of 8 frames of 480x640;
 * :func:`dryrun_multichip` — the counterpart of
-  ``__graft_entry__.dryrun_multichip`` on the data axis: one train step
-  over n spawned ranks against the same step in one process at the global
-  batch, and the full-size synthesis sharded by rows against one
+  ``__graft_entry__.dryrun_multichip``: one train step over n spawned
+  ranks on a (data, model) mesh (a model axis of 2 when n is even)
+  against the same step in one process at the global batch, and the
+  full-size synthesis under data and tensor parallelism against one
   process's."""
 
 from __future__ import annotations
@@ -41,7 +42,13 @@ from tpgan_tpu_torch.models.feature_extract import (
     make_identity_embed_fn,
 )
 from tpgan_tpu_torch.ops.quant import calibrate_synthesis
-from tpgan_tpu_torch.parallel import make_mesh, place, replicated
+from tpgan_tpu_torch.parallel import (
+    infer_param_shardings,
+    make_mesh,
+    per_device_bytes,
+    place,
+    shard_gan_state,
+)
 from tpgan_tpu_torch.parallel.distributed import spawn
 from tpgan_tpu_torch.train.gan_trainer import (
     build_generator,
@@ -189,29 +196,50 @@ def frontalize_entry(device: Optional[Union[str, torch.device]] = None,
 
 DRYRUN_OVERRIDES = {"G": {"fm_multiplier": 0.25, "local_feature_layer_dim": 16},
                     "D": {"fm_multiplier": 0.25}, "compute_dtype": "float32"}
-DRYRUN_ROWS = 2  # per rank, as JAX's dryrun_multichip's batch of 2 n
+DRYRUN_ROWS = 2  # per device, as JAX's dryrun_multichip's batch of 2 n
+DRYRUN_MIN_SHARD_DIM = 64  # the narrow step's rule, __graft_entry__.py:100
+
+
+def dryrun_mesh_shape(n: int):
+    """(data, model) of JAX's dryrun over n devices: a model axis of 2 when
+    n is even (``__graft_entry__.py:74``)."""
+    model = 2 if n % 2 == 0 and n >= 2 else 1
+    return n // model, model
+
+
+def _params_opt(state):
+    return (list(state.gen.parameters()), list(state.disc.parameters()), state.g_opt,
+            state.d_opt)
 
 
 def _dryrun_step(device, n: int, mesh=None):
     """JAX's dryrun step: fm 0.25, f32, seed 0, the synthetic batch of 2 n
     (seed 0) and a step generator seeded 1; on a ``mesh``, this rank's
-    rows. Returns the metrics as floats."""
+    rows and its slices of the weights JAX's rule shards at
+    ``min_shard_dim`` 64. Returns (the metrics as floats, the bytes of
+    the parameters and both Adam states this rank holds after the step)."""
     cfg = make_config(DRYRUN_OVERRIDES)
     state, gen, disc, g_opt, d_opt = create_gan_state(cfg, seed=0, device=device)
     step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt, mesh=mesh)
     batch = synthetic_gan_batch(DRYRUN_ROWS * n, seed=0)
     if mesh is not None:
-        place(state, replicated(mesh))
+        place(state, shard_gan_state(mesh, state, min_shard_dim=DRYRUN_MIN_SHARD_DIM))
         batch = {k: v[mesh.rows(len(v))] for k, v in batch.items()}
     _, metrics = step(state, batch, torch.Generator(device=device).manual_seed(1))
-    return {k: float(v) for k, v in metrics.items()}
+    return {k: float(v) for k, v in metrics.items()}, per_device_bytes(_params_opt(state))
 
 
-def _dryrun_synthesis(device, n: int, rows=slice(None)) -> np.ndarray:
-    """The full-size (fm 1.0) f32 synthesis of ``rows`` of the synthetic
-    batch of ``n`` (seed 0) with z = 0, generator seed 2."""
+def _dryrun_synthesis(device, n: int, mesh=None) -> np.ndarray:
+    """The full-size (fm 1.0) f32 synthesis of the synthetic batch of
+    ``n`` (seed 0) with z = 0, generator seed 2; on a ``mesh``, this
+    rank's rows, its generator placed by JAX's default rule."""
     cfg = make_config({"compute_dtype": "float32"})
-    synthesize = make_synthesize_fn(cfg, build_generator(cfg, device, seed=2))
+    gen = build_generator(cfg, device, seed=2)
+    rows = slice(None)
+    if mesh is not None:
+        place(gen, infer_param_shardings(mesh, gen))
+        rows = mesh.rows(n)
+    synthesize = make_synthesize_fn(cfg, gen)
     batch = {k: v[rows] for k, v in synthetic_gan_batch(n, seed=0).items() if k in PATCH_KEYS}
     z = np.zeros((len(batch["img"]), cfg.G.zdim), np.float32)
     return synthesize(batch, z).float().cpu().numpy()
@@ -230,47 +258,56 @@ def _f32_exact():
 
 
 def _dryrun_rank(rank: int, n: int, device: str):
-    """One rank of :func:`dryrun_multichip`: (metrics, its synthesis rows)."""
+    """One rank of :func:`dryrun_multichip`: (metrics, its params + Adam
+    bytes, its data index, its synthesis rows)."""
     if torch.device(device).type == "cpu":
         torch.set_num_threads(2)
-    mesh = make_mesh(MeshConfig(data=n))
+    data, model = dryrun_mesh_shape(n)
+    mesh = make_mesh(MeshConfig(data=data, model=model))
     with _f32_exact():
-        metrics = _dryrun_step(torch.device(device), n, mesh)
-        return metrics, _dryrun_synthesis(torch.device(device), n, mesh.rows(n))
+        metrics, nbytes = _dryrun_step(torch.device(device), n, mesh)
+        return metrics, nbytes, mesh.rank, _dryrun_synthesis(torch.device(device), n, mesh)
 
 
 def dryrun_multichip(n_devices: int, backend: Optional[str] = None,
                      device: Optional[Union[str, torch.device]] = None) -> dict:
-    """One train step over ``n_devices`` spawned ranks (fm 0.25, f32, a
-    ``data`` mesh of n, batch 2 per rank), then the same step in this
-    process at the global batch from the same weights and draws, every
-    metric asserted equal within JAX's ``1e-3 + 1e-3 |ref|``
+    """JAX's ``dryrun_multichip`` over ``n_devices`` spawned ranks: a
+    (data, model) mesh with a model axis of 2 when n is even, one train
+    step (fm 0.25, f32, a batch of 2 n, the weights JAX's rule shards at
+    ``min_shard_dim`` 64 split over the model axis), then the same step in
+    this process at the global batch from the same weights and draws,
+    every metric asserted equal within JAX's ``1e-3 + 1e-3 |ref|``
     (``__graft_entry__.py:143``); then the full-size (fm 1.0) f32
-    synthesis of n images, each rank its row, against this process's,
-    within JAX's 5e-4; float32 throughout (no TF32). ``backend``: ``nccl`` on the card (one card per
-    rank: more ranks than cards raise) and ``gloo`` on the CPU unless
-    named; gloo on the card runs every rank on the cards in turn. On
-    ``cuda`` unless ``device`` says otherwise. Returns the metrics of both
-    sides and the synthesis gap."""
+    synthesis of n images under data and tensor parallelism (JAX's default
+    rule) against this process's, within JAX's 5e-4; float32 throughout
+    (no TF32). ``backend``: ``nccl`` on the card (one card per rank: more
+    ranks than cards raise) and ``gloo`` on the CPU unless named; gloo on
+    the card runs every rank on the cards in turn. On ``cuda`` unless
+    ``device`` says otherwise. Returns the mesh, the metrics of both
+    sides, the synthesis gap, and the parameters + Adam states in MiB per
+    rank (by rank) against one process's."""
     device = resolve_device(device)
     backend = backend or ("gloo" if device.type == "cpu" else "nccl")
+    data, model = dryrun_mesh_shape(n_devices)
     ranks = spawn(_dryrun_rank, n_devices, backend=backend, device=str(device),
                   args=(n_devices, str(device)))
     metrics = ranks[0][0]
-    for other, _rows in ranks[1:]:
+    for other, *_rest in ranks[1:]:
         if other != metrics:
             raise AssertionError(f"ranks disagree on the global metrics: {metrics} vs {other}")
     with _f32_exact():
-        ref = _dryrun_step(device, n_devices)
+        ref, total = _dryrun_step(device, n_devices)
         single = _dryrun_synthesis(device, n_devices)
     for k, b in ref.items():
         a = metrics[k]
         if not (np.isfinite(a) and abs(a - b) <= 1e-3 + 1e-3 * abs(b)):
             raise AssertionError(f"mesh-vs-single metric mismatch for {k}: {a} vs {b}")
-    sharded = np.concatenate([rows for _m, rows in ranks])
-    delta = float(np.max(np.abs(sharded - single)))
+    per = n_devices // data  # each rank's rows: those of its data index
+    delta = max(float(np.max(np.abs(rows - single[d * per:(d + 1) * per])))
+                for _m, _b, d, rows in ranks)
     if delta > 5e-4:
-        raise AssertionError(f"full-size data-parallel synthesis mismatch: {delta}")
-    return {"mesh": {"data": n_devices, "model": 1}, "backend": backend, "metrics": metrics,
-            "single": ref, "synthesis_max_abs_delta": delta}
-
+        raise AssertionError(f"full-size dp+tp synthesis mismatch: {delta}")
+    return {"mesh": {"data": data, "model": model}, "backend": backend, "metrics": metrics,
+            "single": ref, "synthesis_max_abs_delta": delta,
+            "params_opt_mib": [b / 2**20 for _m, b, _d, _r in ranks],
+            "unsharded_params_opt_mib": total / 2**20}

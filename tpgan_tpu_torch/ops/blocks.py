@@ -57,6 +57,12 @@ Left out of this port, on purpose:
   Only the int8 path takes the phase weights (:func:`subpixel_weights`),
   because the two algorithms quantize different tensors.
 
+Tensor parallelism (``parallel/tensor_parallel.py``): a ``Conv2d``,
+``ConvTranspose2d`` or ``LinearBlock`` whose weight a mesh's model axis
+shards holds its slice and its placement (``tp``) and runs the column- or
+row-parallel form of its op; with no placement it runs the code above
+unchanged. Synced BatchNorm runs over the mesh's data group only.
+
 Post-training quantization (``ops/quant.py``): ``Conv2d`` and
 ``ConvTranspose2d`` carry a quant mode (``quant.quant_mode``). In
 ``calib`` a conv records the absmax of its input — after the cast to the
@@ -91,6 +97,7 @@ from tpgan_tpu_torch.ops.activations import (
     negative_slope,
 )
 from tpgan_tpu_torch.ops.resize import resize
+from tpgan_tpu_torch.parallel import tensor_parallel
 from tpgan_tpu_torch.parallel.collectives import all_reduce_sum
 
 Padding = Union[int, Tuple[int, int], Tuple[int, int, int, int]]
@@ -138,12 +145,19 @@ class _Quantizable(nn.Module):
     quant_rescale_dtype: torch.dtype = torch.float32
     quant_min_channels: int = 0
     quant_prepared: bool = False
+    tp = None  # its placement on a mesh's model axis (parallel.tensor_parallel)
 
     def _quant_forward(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The quant mode's part of a forward, on the cast (and padded)
         input: in ``CALIB`` the running absmax of ``x`` is recorded and None
         returned (the float conv follows); in ``INT8`` the prepared int8
-        program's output, or None where the layer stays float."""
+        program's output, or None where the layer stays float. A layer
+        sharded over a model axis is refused: JAX's serving takes no
+        mesh."""
+        if self.tp is not None:
+            raise ValueError("post-training quantization of a layer sharded over a mesh's "
+                             "model axis: quantize the single-device model "
+                             "(parallel.tensor_parallel.unsharded_copy)")
         if self.quant_mode == CALIB:
             m = x.detach().abs().amax().float()
             prev = self.quant_absmax
@@ -217,6 +231,9 @@ class Conv2d(_Quantizable):
             y = self._quant_forward(x)
             if y is not None:
                 return y
+        if self.tp is not None:
+            return tensor_parallel.conv2d(self.tp, x, w, b, self.stride, self.padding,
+                                          self.groups)
         return F.conv2d(x, w, b, self.stride, self.padding, groups=self.groups)
 
 
@@ -334,6 +351,9 @@ class ConvTranspose2d(_Quantizable):
             y = self._quant_forward(x)
             if y is not None:
                 return y
+        if self.tp is not None:
+            return tensor_parallel.conv_transpose2d(self.tp, x, w, b, self.stride, self.padding,
+                                                    self.output_padding)
         return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding)
 
 
@@ -346,8 +366,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased variance) unless ``advance_stats`` is False, which
     :func:`frozen_batch_stats` sets.
 
-    ``sync_mesh`` (set by :func:`sync_batch_stats`): a data-parallel mesh
-    of more than one rank, whose ranks each hold rows of one global batch.
+    ``sync_mesh`` (set by :func:`sync_batch_stats`): a mesh whose data axis
+    has more than one rank, whose data ranks each hold rows of one global
+    batch (the ranks of a model group hold the same rows and sync over
+    their own data groups).
     Train mode then takes the global batch's statistics, JAX's
     ``axis_name`` path (``:437-447``, which GSPMD takes for any BatchNorm
     of a ``data``-sharded step): each rank's mean and biased variance,
@@ -539,6 +561,7 @@ class LinearBlock(nn.Module):
     (reference: ModificationLayer.py:204-231). Weight stored (out, in)."""
 
     compute_dtype: Optional[torch.dtype] = None
+    tp = None  # its placement on a mesh's model axis (parallel.tensor_parallel)
 
     def __init__(
         self,
@@ -551,6 +574,7 @@ class LinearBlock(nn.Module):
     ):
         super().__init__()
         self.activation = activation
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = (
             None if use_batchnorm
@@ -567,7 +591,8 @@ class LinearBlock(nn.Module):
             self._bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(*_cast(self, x))
+        y = (F.linear(*_cast(self, x)) if self.tp is None
+             else tensor_parallel.linear(self.tp, *_cast(self, x)))
         if self.bn is not None:
             y = self.bn(y[:, :, None, None])[:, :, 0, 0]
         return apply_activation(y, self.activation)

@@ -397,6 +397,9 @@ def prepare_int8(model: nn.Module) -> None:
     for name, layer in _quant_layers(model):
         if layer.quant_prepared:
             continue
+        if layer.tp is not None:
+            raise ValueError(f"{name} is sharded over a mesh's model axis: quantize the "
+                             "single-device model (parallel.tensor_parallel.unsharded_copy)")
         layer.int8 = None
         if should_quantize(layer.quant_in_per_group, layer.quant_out, layer.quant_min_channels):
             if layer.quant_absmax is None:

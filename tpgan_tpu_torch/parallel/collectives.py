@@ -1,6 +1,8 @@
-"""The collectives of the data axis: what GSPMD inserts for JAX's
+"""The collectives of the mesh's two axes: what GSPMD inserts for JAX's
 ``data``-sharded step (the gradient mean, the global metrics, the synced
-BatchNorm statistics), written out for ``torch.distributed``.
+BatchNorm statistics) and for its ``model``-sharded weights (the
+column- and row-parallel layers of ``parallel.tensor_parallel``), written
+out for ``torch.distributed``.
 
 * :func:`all_reduce_sum` — a sum over the group that autograd
   differentiates, twice and more: its backward is the same sum of the
@@ -14,6 +16,23 @@ BatchNorm statistics), written out for ``torch.distributed``.
   not one per leaf. On the card under NCCL a CUDA graph captures it.
 * :func:`broadcast_` — rank 0's values into every rank's tensors, in
   place, bucketed the same way.
+
+The model axis's four, Megatron's "f" and "g" and the channel gather and
+split, each an autograd Function whose backward applies another of the
+four, so the GP's double backward crosses the ranks too. The ranks of a
+model group hold replicas of one loss, not parts of a sum as the data
+axis's do: the cotangent of a replicated tensor is the same on each of
+them, and a sum over the group belongs where values are partial.
+
+* :func:`copy_to_model` (f) — identity forward; the backward sums the
+  ranks' partial cotangents (a replicated input read by sharded weights).
+* :func:`reduce_from_model` (g) — the sum of the ranks' partial values;
+  the backward passes the replicated cotangent on (a row-parallel
+  product).
+* :func:`gather_from_model` — each rank's slice along ``dim``
+  concatenated in rank order; the backward keeps this rank's slice.
+* :func:`split_to_model` — this rank's slice along ``dim``; the backward
+  gathers.
 
 Every rank must make the same calls in the same order.
 """
@@ -48,6 +67,103 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, differentiable any number of
     times."""
     return _AllReduceSum.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """f: y = x; dL/dx = the sum over the group of dL/dy."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _ReduceFromModel.apply(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: y = the sum over the group of x; dL/dx = dL/dy."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _CopyToModel.apply(grad, ctx.group), None
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    k = x.shape[dim] // n
+    return x.narrow(dim, r * k, k).contiguous()
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """y = the ranks' x concatenated along ``dim``; dL/dx = this rank's
+    slice of dL/dy."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.group = dim, group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _SplitToModel.apply(grad, ctx.dim, ctx.group), None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """y = this rank's slice of x along ``dim``; dL/dx = the ranks' dL/dy
+    concatenated."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _GatherFromModel.apply(grad, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``group``, whose gradient
+    is the replicated one."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' slices of ``group`` concatenated along ``dim``."""
+    return _GatherFromModel.apply(x, dim, group)
+
+
+def split_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` (equal slices, in rank
+    order)."""
+    return _SplitToModel.apply(x, dim, group)
+
+
+@torch.no_grad()
+def gather_tensor(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole of a tensor sharded along ``dim`` over ``group``, outside
+    autograd (checkpoints, a state gathered for a test)."""
+    flat = _on_backend_device(x.contiguous(), group)
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat, group=group)
+    return torch.cat(parts, dim).to(x.device)
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> Dict[Tuple[torch.dtype, torch.device],

@@ -1,8 +1,8 @@
 """Multi-process initialisation — the port of
 ``tpgan_tpu/parallel/distributed.py`` over ``torch.distributed``.
 
-One process per rank; the ranks of the data axis form the process group
-(``parallel.mesh.make_mesh``). :func:`maybe_initialize` is called once per
+One process per rank; ``parallel.mesh.make_mesh`` lays the ranks out on
+the (data, model) mesh and makes each axis's process group. :func:`maybe_initialize` is called once per
 process before the models are built. On the card the group is NCCL, one
 rank per card (``LOCAL_RANK`` picks the card, so ``utils.device``'s
 ``"cuda"`` is the rank's own); the caller may ask for gloo, which also

@@ -8,10 +8,13 @@ a ``torch.save`` of the step and, for a GAN state, both models'
 (``train.pretrain.PretrainState``), the model's, the optimizer's and the
 learning-rate schedule's ``state_dict``; all copied to the host. It is
 written under a temporary name and renamed, so a directory named by a
-step always holds a whole checkpoint. On a data-parallel mesh every rank
-holds the same state: rank 0 alone writes it, and every rank then waits
-at a barrier (``save_checkpoint(mesh=)``); every rank reads it back on a
-resume and takes rank 0's values (``parallel.place``).
+step always holds a whole checkpoint. On a mesh (``save_checkpoint(mesh=)``)
+every rank gathers the leaves sharded over its model group
+(``parallel.whole``), the mesh's first rank writes the whole tensors, in
+the format of a single-device run's, and every rank then waits at a
+barrier; a restore into a sharded state loads the whole tensors and
+keeps each rank's slice, so a checkpoint of a tensor-parallel run
+resumes without a mesh and the other way round.
 The JAX package's Orbax checkpoints do not load here; a JAX state comes
 across through ``tpgan_tpu_torch.convert.load_jax_gan_state``. One model's
 variables alone (the identity embedder's) are saved in the same layout
@@ -33,6 +36,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from tpgan_tpu_torch.parallel.distributed import barrier
+from tpgan_tpu_torch.parallel.sharding import whole
 from tpgan_tpu_torch.train.gan_trainer import GANTrainState
 
 if TYPE_CHECKING:
@@ -118,14 +122,16 @@ def save_checkpoint(
     the next blocking save to the directory) waits for the writes and
     raises what failed in them.
 
-    ``mesh`` (a data-parallel ``parallel.Mesh``; every rank calls): rank 0
-    writes, blocking whatever ``block`` says, and every rank then waits at
-    a barrier, so no rank goes past the step before the checkpoint is on
+    ``mesh`` (a ``parallel.Mesh``; every rank calls): the sharded leaves
+    are gathered whole (``parallel.whole``), the mesh's first rank writes,
+    blocking whatever ``block`` says, and every rank then waits at a
+    barrier, so no rank goes past the step before the checkpoint is on
     disk."""
     if mesh is not None:
-        if mesh.rank == 0:
-            save_checkpoint(directory, step, state, max_to_keep)
-        barrier(mesh.group)
+        with whole(state):
+            if mesh.is_main:
+                save_checkpoint(directory, step, state, max_to_keep)
+        barrier(mesh.world)
         return
     directory = os.path.abspath(directory)
     if os.path.exists(os.path.join(directory, str(step))):
@@ -235,8 +241,12 @@ def restore_checkpoint(
     into ``state_like`` (a GAN or a pretrain state), in place, and return
     it. Raises ``FileNotFoundError`` when there is none, and on any
     layout mismatch (keys, shapes, EMA tracked on one side only, a
-    schedule on one side only)."""
-    return _apply(_load(directory, step), state_like, tolerate_ema=False)
+    schedule on one side only). A state sharded over a mesh's model axis
+    takes each rank's slice of the whole tensors (every rank of the model
+    group calls)."""
+    payload = _load(directory, step)
+    with whole(state_like):
+        return _apply(payload, state_like, tolerate_ema=False)
 
 
 def restore_gan_checkpoint(
@@ -248,7 +258,9 @@ def restore_gan_checkpoint(
     its EMA from the restored live weights; a checkpoint's EMA weights
     that the state does not track are dropped, so evaluation scores the
     live weights. Any other mismatch raises."""
-    return _apply(_load(directory, step), state_like, tolerate_ema=True)
+    payload = _load(directory, step)
+    with whole(state_like):
+        return _apply(payload, state_like, tolerate_ema=True)
 
 
 def save_model_variables(

@@ -62,8 +62,9 @@ from tpgan_tpu_torch.ops.blocks import (
 )
 from tpgan_tpu_torch.ops.kernels import fuse_parts
 from tpgan_tpu_torch.ops.quant import SYNTHESIS_KEYS, make_int8_model
-from tpgan_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_metrics
+from tpgan_tpu_torch.parallel.collectives import all_reduce_metrics
 from tpgan_tpu_torch.parallel.mesh import data_group
+from tpgan_tpu_torch.parallel.sharding import mean_gradients_, metrics_group
 from tpgan_tpu_torch.train.optim import adam_wgan, make_capturable
 from tpgan_tpu_torch.utils import graphs
 from tpgan_tpu_torch.utils.device import resolve_device
@@ -333,7 +334,16 @@ def make_gan_train_step(
     global batch's statistics (``ops.blocks.sync_batch_stats``). With
     accumulation, microbatch i is every rank's i-th local microbatch (the
     global batch's rows in another order than JAX's contiguous split,
-    which GSPMD reshuffles across the ranks).
+    which GSPMD reshuffles across the ranks). On a mesh with a model axis
+    the ranks of a model group see the same rows and draws and hold
+    slices of the weights ``place(state, shard_gan_state(mesh, state))``
+    sharded: the sharded layers gather or sum over the model group
+    (``parallel.tensor_parallel``), each rank's Adam and EMA update act on
+    its slices, the noise rows and the synced BatchNorm are the data
+    group's, a sharded weight's gradient is averaged over its data group,
+    and the replicated leaves' gradients and the metrics over the whole
+    mesh (``parallel.sharding.mean_gradients_``: the model ranks' replicas
+    stay equal where the card's kernels differ in the last bit).
     """
     loss_cfg = cfg.loss
     zdim = cfg.G.zdim
@@ -349,9 +359,10 @@ def make_gan_train_step(
     g_params = list(gen.parameters())
     d_params = list(disc.parameters())
     rate = gen.feature_predict.dropout
-    feature_dim = gen.feature_predict.fc.weight.shape[1]
+    feature_dim = gen.feature_predict.fc.in_features
     critic = _remat(disc, disc) if remat_critic else disc
-    group, rank, ranks = data_group(mesh)
+    _group, rank, ranks = data_group(mesh)
+    metric_group = metrics_group(mesh)
     sync_batch_stats(gen, mesh)
     sync_batch_stats(disc, mesh)
 
@@ -467,12 +478,13 @@ def make_gan_train_step(
         set_grads(g_params, g_opt, g_loss, accumulate)
         return g_loss, comps
 
-    def average_grads(params) -> None:
-        """The mean over the microbatches and, on a mesh, over the ranks."""
+    def average_grads(module) -> None:
+        """The mean over the microbatches and, on a mesh, over the ranks
+        (``parallel.sharding.mean_gradients_``: a sharded weight's over
+        its data group, a replicated leaf's over the whole mesh)."""
         if accum > 1:
-            torch._foreach_div_([p.grad for p in params], float(accum))
-        if group is not None:
-            all_reduce_mean_([p.grad for p in params], group)
+            torch._foreach_div_([p.grad for p in module.parameters()], float(accum))
+        mean_gradients_(module, mesh)
 
     def mean(values: List[torch.Tensor]) -> torch.Tensor:
         return values[0] if len(values) == 1 else torch.stack(values).mean(0)
@@ -494,11 +506,11 @@ def make_gan_train_step(
         # critic update (WGAN-GP), over the microbatches in turn
         d_runs = [d_phase(mb, z[i], gp_eps[i], mask_d[i], accumulate=i > 0)
                   for i, mb in enumerate(micro)]
-        average_grads(d_params)
+        average_grads(disc)
         d_opt.step()
         # generator update, against the updated critic
         g_runs = [g_phase(mb, z[i], mask_g[i], accumulate=i > 0) for i, mb in enumerate(micro)]
-        average_grads(g_params)
+        average_grads(gen)
         g_opt.step()
 
         if ema_decay > 0.0 and state.g_ema_params:
@@ -512,8 +524,8 @@ def make_gan_train_step(
         metrics = {"d_loss": d_metrics.pop("d_loss"), "g_loss": mean([r[0] for r in g_runs]),
                    **d_metrics}
         metrics.update({f"g_{k}": mean([r[1][k] for r in g_runs]) for k in g_runs[0][1]})
-        if group is not None:  # the global means
-            return state, all_reduce_metrics(metrics, group)
+        if metric_group is not None:  # the global means
+            return state, all_reduce_metrics(metrics, metric_group)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     # the step's parts, for running one phase alone (the first-step bisect,

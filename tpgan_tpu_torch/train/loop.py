@@ -1,12 +1,13 @@
 """The GAN training loop — the port of ``tpgan_tpu/train/loop.py``: the
 fused WGAN-GP step (K steps per host call as a CUDA graph on the card),
-data-parallel over the ranks of a mesh, metrics with images/s, NaN
-checks, sample grids, a ``torch.profiler`` trace over a step window, and
-checkpoints with resume.
+data- and tensor-parallel over the ranks of a (data, model) mesh, metrics
+with images/s, NaN checks, sample grids, a ``torch.profiler`` trace over a
+step window, and checkpoints with resume.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Iterable, List, Mapping, Optional, Union
 
@@ -14,8 +15,9 @@ import numpy as np
 import torch
 
 from tpgan_tpu_torch.config import Config
-from tpgan_tpu_torch.parallel import batch_shardings, make_mesh, place, replicated
+from tpgan_tpu_torch.parallel import batch_shardings, make_mesh, place, shard_gan_state
 from tpgan_tpu_torch.parallel.distributed import is_main_process, maybe_initialize
+from tpgan_tpu_torch.parallel.tensor_parallel import unsharded_copy
 from tpgan_tpu_torch.train.checkpoint import (
     finalize_checkpoints,
     latest_step,
@@ -88,21 +90,25 @@ def run_gan_training(
 
     ``device``: ``cuda`` (the rank's own card) unless asked otherwise.
 
-    ``mesh`` (``parallel.make_mesh``): data parallelism over its ranks,
-    one process each, as JAX's loop shards over its mesh; when it is None
-    and ``parallel.distributed.maybe_initialize()`` finds a process group,
-    the mesh is built from ``cfg.mesh``, as JAX's loop always builds one.
-    ``train.batch_size`` is the global batch. ``batches`` yields global
-    batches, of which each rank keeps its rows (sliced where they lie,
-    before the copy to its device), or each rank's own rows (a sharded
-    iterator: ``data.pipeline.batch_iterator(shard=mesh.data_shard)``).
-    Every rank builds, or restores, the state and then takes rank 0's
-    (``place(state, replicated(mesh))``); the step all-reduces its
-    gradients and metrics (``make_gan_train_step(mesh=)``), so every
-    rank's NaN check sees the global metrics and raises with the others.
-    Rank 0 alone writes metrics, samples, traces and checkpoints; every
-    rank waits at a barrier after each checkpoint until it is on disk.
-    ``imgs_per_sec`` counts the global batch."""
+    ``mesh`` (``parallel.make_mesh``): data and tensor parallelism over
+    its ranks, one process each, as JAX's loop shards over its mesh; when
+    it is None and ``parallel.distributed.maybe_initialize()`` finds a
+    process group, the mesh is built from ``cfg.mesh``, as JAX's loop
+    always builds one. ``train.batch_size`` is the global batch.
+    ``batches`` yields global batches, of which each rank keeps its data
+    index's rows (sliced where they lie, before the copy to its device),
+    or each rank's own rows (a sharded iterator:
+    ``data.pipeline.batch_iterator(shard=mesh.data_shard)``). Every rank
+    builds, or restores, the whole state and then takes rank 0's values
+    and, on a model axis of more than one rank, its slice of each leaf
+    JAX's rule shards (``place(state, shard_gan_state(mesh, state))``, as
+    JAX's ``loop.py:79``); the step all-reduces its gradients and metrics
+    over the data group (``make_gan_train_step(mesh=)``), so every rank's
+    NaN check sees the global metrics and raises with the others. Rank 0
+    alone writes metrics, samples (from a whole copy of the generator that
+    every rank of a model axis helps gather), traces and checkpoints
+    (gathered whole); every rank waits at a barrier after each checkpoint
+    until it is on disk. ``imgs_per_sec`` counts the global batch."""
     if mesh is None and maybe_initialize():
         mesh = make_mesh(cfg.mesh)
     main = mesh is None or is_main_process()
@@ -120,7 +126,7 @@ def run_gan_training(
     global_batch = int(cfg.train.batch_size)
     shard = None
     if mesh is not None:
-        place(state, replicated(mesh))
+        place(state, shard_gan_state(mesh, state))
         mesh.rows(global_batch)  # raises when the data axis does not divide the batch
 
         def shard(batch):
@@ -176,8 +182,14 @@ def run_gan_training(
                 host["imgs_per_sec"] = throughput.rate(metrics["g_loss"])
                 writer.write(i, host)
                 throughput.start()
-        if sample_fn is not None and main and sample_every and i % sample_every == 0:
-            sample_fn(i, state)
+        if sample_fn is not None and sample_every and i % sample_every == 0:
+            if mesh is not None and mesh.model_size > 1:  # every rank gathers
+                whole_gen = unsharded_copy(state.gen)
+                if main:
+                    sample_fn(i, dataclasses.replace(state, gen=whole_gen))
+                del whole_gen
+            elif main:
+                sample_fn(i, state)
         if (checkpoint_dir and cfg.train.checkpoint_every_steps
                 and i % cfg.train.checkpoint_every_steps == 0):
             # copied to the host now, written in the background (on a mesh,

@@ -37,13 +37,10 @@ from tpgan_tpu_torch.losses.multitask import multitask_landmark_loss
 from tpgan_tpu_torch.models.mobilenet_v2 import MobileNetV2, anchor_centres
 from tpgan_tpu_torch.models.registry import get_model
 from tpgan_tpu_torch.ops.blocks import reset_parameters, sync_batch_stats
-from tpgan_tpu_torch.parallel import place, replicated
-from tpgan_tpu_torch.parallel.collectives import (
-    all_reduce_mean_,
-    all_reduce_metrics,
-    all_reduce_sum,
-)
+from tpgan_tpu_torch.parallel import infer_param_shardings, place
+from tpgan_tpu_torch.parallel.collectives import all_reduce_metrics, all_reduce_sum
 from tpgan_tpu_torch.parallel.mesh import data_group
+from tpgan_tpu_torch.parallel.sharding import mean_gradients_, metrics_group
 from tpgan_tpu_torch.parallel.distributed import barrier, is_main_process
 from tpgan_tpu_torch.train.optim import get_optimizer, multistep_lr
 from tpgan_tpu_torch.utils.device import resolve_device
@@ -225,10 +222,15 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
     keeps its rows; BatchNorm takes the global batch's statistics
     (``ops.blocks.sync_batch_stats``), the gradient mean and the metrics
     are all-reduced (each loss term is a mean over images, so the mean of
-    the ranks' means is the global one)."""
+    the ranks' means is the global one). A model axis needs the model
+    placed first (``place(state, infer_param_shardings(mesh, state))``):
+    its sharded layers gather or sum over the model group, SGD acts on
+    each rank's slices, and the gradients are averaged as
+    ``parallel.sharding.mean_gradients_`` says."""
     device = next(model.parameters()).device
     decode = decode_for_head_mode(cfg.pretrain.head_mode)
-    group, rank, ranks = data_group(mesh)
+    _group, rank, ranks = data_group(mesh)
+    metric_group = metrics_group(mesh)
     sync_batch_stats(model, mesh)
 
     def step(state: PretrainState, images, labels, generator: Optional[torch.Generator] = None,
@@ -248,8 +250,7 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
                                             **_loss_kwargs(cfg, x.shape[2:], device))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if group is not None:
-            all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None], group)
+        mean_gradients_(model, mesh)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -261,8 +262,8 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
         metrics = {"loss": loss.detach(), "accuracy": acc,
                    **{k: aux[k].detach() for k in
                       ("location_loss", "classification_loss", "num_positives")}}
-        if group is not None:  # the global means
-            metrics = all_reduce_metrics(metrics, group)
+        if metric_group is not None:  # the global means
+            metrics = all_reduce_metrics(metrics, metric_group)
         if return_aux:
             return state, metrics, {"assigned": aux["assigned"], "keep_bg": aux["keep_bg"],
                                     "loc": loc, "cls": cls}
@@ -374,14 +375,19 @@ def run_pretrain(
     schedule from there. Weights and the step's ``torch.Generator`` come
     from ``seed``. ``device``: ``cuda`` unless asked otherwise.
 
-    ``mesh`` (``parallel.make_mesh``): data-parallel over its ranks, as
-    JAX's run with a mesh shards the batch over ``data``.
+    ``mesh`` (``parallel.make_mesh``): data-parallel over its data axis,
+    as JAX's run with a mesh shards the batch over ``data``, and
+    tensor-parallel over its model axis, the detector's weights (the
+    depthwise convs column-parallel among them) and SGD's momentum placed
+    by ``infer_param_shardings(mesh, state)`` as JAX's ``pretrain.py:372``
+    places them.
     ``pretrain.batch_size`` and the batches are global: each rank keeps
     its rows of a train batch (sliced where it lies, before the copy to
     its device; a batch of the local size is taken as this rank's rows
     already) and of a validation batch, and the validation metrics are
     the global batch's. Every rank restores a resumed run and takes rank
-    0's state; rank 0 alone writes the sidecar, ``best/``,
+    0's state (each rank its slice of the sharded leaves); rank 0 alone
+    writes the sidecar, ``best/``,
     ``best_acc.json`` and the per-epoch checkpoints, and every rank waits
     at a barrier after each write and reads the bar."""
     from tpgan_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -392,13 +398,13 @@ def run_pretrain(
     if checkpoint_dir and main:
         write_detector_meta(checkpoint_dir, cfg, nose_prior=nose_prior)
     if mesh is not None:
-        barrier(mesh.group)
+        barrier(mesh.world)
     if resume and checkpoint_dir:
         restore_checkpoint(checkpoint_dir, state)
         print(f"[pretrain] resumed from step {state.step} "
               f"(epoch {state.step // max(steps_per_epoch, 1)})")
-    if mesh is not None:
-        place(state, replicated(mesh))
+    if mesh is not None:  # JAX's pretrain.py:372
+        place(state, infer_param_shardings(mesh, state))
     train_step = make_pretrain_step(cfg, model, opt, state.scheduler, mesh=mesh)
     eval_step = make_eval_step(cfg, model, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(seed)
