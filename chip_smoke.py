@@ -27,13 +27,16 @@ Phases, each of which exits non-zero on failure:
                  the conv3x3+bias+LeakyReLU (K3) at the three A/B shapes
                  in bf16 (the TMA + wgmma kernel), its tail shapes (W 96
                  and 8, H 1, B 1, Cin 72, Cout 72 and 200, an f32 bias),
-                 the A/B shapes through the mma_sync kernel, the first in
-                 f32, the JAX test's shape and an odd one (mma_sync), each
-                 asserting the kernel variant it launched, a NaN planted in
-                 x, bf16 within one bf16 ulp (2^-7 |want| + 1e-6
-                 max|want|), f32 within 1e-5 max|want|; a CUDA tensor the
-                 kernel does not take (dtype, mixed dtypes, layout,
-                 requires grad) raises;
+                 the A/B shapes through the mma_sync kernel, the f32
+                 CUDA-core kernel at the three A/B shapes and the same
+                 tails (Cin 5 guarded, Cout 264), on an x 4 bytes off 16
+                 (guarded) and at y exactly 0 (bit for bit, signs
+                 included), the JAX test's shape and an odd one (mma_sync),
+                 each asserting the kernel variant it launched and its
+                 copy path (16-byte or guarded), a NaN planted in x, bf16
+                 within one bf16 ulp (2^-7 |want| + 1e-6 max|want|), f32
+                 within 1e-5 max|want|; a CUDA tensor the kernel does not
+                 take (dtype, mixed dtypes, layout, requires grad) raises;
 4. serve       — the full-size (fm=1.0, deconv) generator in bf16 from a
                  seeded init answers 4 requests of batch 8 through
                  ``build_generator`` / ``make_synthesize_fn``; 3 fuses per
@@ -59,20 +62,21 @@ Phases, each of which exits non-zero on failure:
                  (fuse forward at batch 8 and 128; the fuse backward and
                  K2 at batch 16 and 64, the fuse backward as the train
                  step calls it, g in the layout phase 6 recorded, the
-                 whole wrapper call timed, beside a contiguous g; K3 in
-                 f32 at the A/B's first shape against cuDNN, TF32 off);
+                 whole wrapper call timed, beside a contiguous g);
                  synthesis latency and images/s at batch 8 and 128;
                  train-step ms and images/s at batch 16 and 64 with peak
                  memory; profiler breakdowns of the batch-8 forward and of
                  one batch-16 train step, with the kernel that runs just
                  before each fuse backward;
-9. conv A/B    — ``tpgan_tpu_torch.examples.conv_ab``, K3's one path: the
-                 kernel (``tma_wgmma``) against the mma_sync kernel (in
-                 turns), cuDNN's conv + epilogue and the plain version at
-                 the three head-area shapes, bf16; one JSON line per shape;
-                 K3's launches equal the calls the A/B made, per variant; a
+9. conv A/B    — ``tpgan_tpu_torch.examples.conv_ab``, K3's one path: in
+                 bf16 the kernel (``tma_wgmma``) against the mma_sync
+                 kernel (in turns), in f32 the CUDA-core kernel, each
+                 beside cuDNN's conv + epilogue (f32 with TF32 off) and the
+                 plain version at the three head-area shapes; one JSON
+                 line per shape and dtype; K3's launches equal the calls
+                 the A/B made, per variant (f32 launches = f32 calls); a
                  profile of one kernel call and of the cuDNN call at the
-                 first shape;
+                 first shape, in bf16 and in f32;
 10. loop       — ``run_gan_training`` at full size, bf16, batch 16, 4 steps
                  per dispatch (a CUDA graph of the step), 8 steps with a
                  checkpoint and a sample grid every 4, then a resume to 12:
@@ -337,21 +341,35 @@ PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1,
 # names them (longest first: one name holds no other)
 TRACE_KERNELS = re.compile(r"(fuse_parts_bwd_kernel|fuse_parts_kernel|sym_tv_bwd_general_kernel|"
                            r"sym_tv_bwd_kernel|sym_tv_kernel|conv3x3_\w*_kernel)")
-# K3 on the card: (B, H, W, Cin, Cout, dtype name, variant) beside the
-# three A/B shapes in bf16 — the TMA + wgmma kernel's tails (W 96: the last
-# column tile runs past W; W 8; H 1; B 1; Cin 72: a zero-filled chunk tail;
-# Cout 72 and 200: N tails), the dominant shape in f32, the JAX test's
-# shape, odd sizes (mma_sync)
-CONV_CHECKS = ((2, 6, 96, 64, 64, "bfloat16", "tma_wgmma"),
-               (2, 20, 8, 64, 64, "bfloat16", "tma_wgmma"),
-               (2, 1, 40, 64, 64, "bfloat16", "tma_wgmma"),
-               (1, 32, 32, 128, 128, "bfloat16", "tma_wgmma"),
-               (2, 16, 16, 72, 64, "bfloat16", "tma_wgmma"),
-               (2, 16, 16, 64, 72, "bfloat16", "tma_wgmma"),
-               (2, 12, 12, 32, 200, "bfloat16", "tma_wgmma"),
-               (8, 128, 128, 64, 64, "float32", "f32"), (2, 16, 16, 8, 16, "float32", "f32"),
-               (2, 16, 16, 8, 16, "bfloat16", "tma_wgmma"), (2, 9, 13, 5, 7, "float32", "f32"),
-               (2, 9, 13, 5, 7, "bfloat16", "mma_sync"))
+# K3 on the card: (B, H, W, Cin, Cout, dtype name, variant, 16-byte copies)
+# beside the three A/B shapes in bf16 — the TMA + wgmma kernel's tails (W
+# 96: the last column tile runs past W; W 8; H 1; B 1; Cin 72: a zero-filled
+# chunk tail; Cout 72 and 200: N tails), the f32 kernel at the three A/B
+# shapes and the same tails (Cin 5: its guarded copies; Cout 264: three N
+# tiles), the JAX test's shape, odd sizes (mma_sync, f32 guarded)
+CONV_CHECKS = ((2, 6, 96, 64, 64, "bfloat16", "tma_wgmma", True),
+               (2, 20, 8, 64, 64, "bfloat16", "tma_wgmma", True),
+               (2, 1, 40, 64, 64, "bfloat16", "tma_wgmma", True),
+               (1, 32, 32, 128, 128, "bfloat16", "tma_wgmma", True),
+               (2, 16, 16, 72, 64, "bfloat16", "tma_wgmma", True),
+               (2, 16, 16, 64, 72, "bfloat16", "tma_wgmma", True),
+               (2, 12, 12, 32, 200, "bfloat16", "tma_wgmma", True),
+               (8, 128, 128, 64, 64, "float32", "f32", True),
+               (8, 64, 64, 128, 128, "float32", "f32", True),
+               (32, 32, 32, 256, 256, "float32", "f32", True),
+               (2, 6, 96, 64, 64, "float32", "f32", True),
+               (2, 20, 8, 64, 64, "float32", "f32", True),
+               (2, 1, 40, 64, 64, "float32", "f32", True),
+               (1, 32, 32, 128, 128, "float32", "f32", True),
+               (2, 16, 16, 72, 64, "float32", "f32", True),
+               (2, 9, 13, 5, 64, "float32", "f32", False),
+               (2, 16, 16, 64, 72, "float32", "f32", True),
+               (2, 12, 12, 32, 200, "float32", "f32", True),
+               (2, 8, 8, 32, 264, "float32", "f32", True),
+               (2, 16, 16, 8, 16, "float32", "f32", True),
+               (2, 16, 16, 8, 16, "bfloat16", "tma_wgmma", True),
+               (2, 9, 13, 5, 7, "float32", "f32", False),
+               (2, 9, 13, 5, 7, "bfloat16", "mma_sync", False))
 F32_MAX_DIFF = 1e-6
 # bf16 keeps 8 mantissa bits: the bf16 serving output may differ from the
 # f32 one by a few percent of the output's range (the CPU test's bound)
@@ -810,7 +828,10 @@ def check_sym_tv_bwd(dev, errors):
 def check_conv3x3(dev, errors):
     """Phase 3, K3: each kernel variant against its plain version, a NaN
     planted in x, asserting through the per-variant counts which kernel
-    each shape launched; an f32 bias beside bf16; the refusals."""
+    each shape launched and through its plan whether it copied 16 bytes at
+    a time or element by element; an f32 bias beside bf16; f32 on an x
+    misaligned by 4 bytes (guarded) and at y exactly 0; the refusals."""
+    import numpy as np
     import torch
 
     from tpgan_tpu_torch.examples import conv_ab
@@ -818,12 +839,17 @@ def check_conv3x3(dev, errors):
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     slope = conv_ab.NEGATIVE_SLOPE
-    cases = ([(*s, "bfloat16", "tma_wgmma", None) for s in conv_ab.SHAPES]
+    cases = ([(*s, "bfloat16", "tma_wgmma", True, None) for s in conv_ab.SHAPES]
              + [(*c, None) for c in CONV_CHECKS]
-             + [(*s, "bfloat16", "mma_sync", "mma_sync") for s in conv_ab.SHAPES])
-    for *shape, dname, variant, forced in cases:
+             + [(*s, "bfloat16", "mma_sync", True, "mma_sync") for s in conv_ab.SHAPES])
+    for *shape, dname, variant, vec, forced in cases:
         x, k, b = conv_ab.make_inputs(tuple(shape), dev, getattr(torch, dname))
         x[0, shape[1] // 2, shape[2] // 2, 0] = float("nan")
+        plan = kernels.conv3x3_plan(*shape, x.dtype, x.data_ptr() % 16, k.data_ptr() % 16)
+        if plan.vec != vec:
+            raise AssertionError(f"conv3x3 {shape} {dname}: the plan copies "
+                                 f"{'16 bytes' if plan.vec else 'element-wise'}, expected "
+                                 f"{'16 bytes' if vec else 'element-wise'}")
         before = kernels.conv3x3_variant_counts()
         if forced:
             got = kernels._launch_conv3x3(x, k, b, slope, variant=forced)
@@ -843,8 +869,8 @@ def check_conv3x3(dev, errors):
             raise AssertionError(f"conv3x3 {shape} {dname}: {int(got.isnan().sum())} NaNs, "
                                  f"expected the pixel's 3x3 neighbourhood, {hood * shape[4]}")
         errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
-        log(f"kernel check: conv3x3_bias_lrelu {tuple(shape)} {dname} [{variant}]: "
-            f"max|kernel - plain| {err:.3e} of max|plain| "
+        log(f"kernel check: conv3x3_bias_lrelu {tuple(shape)} {dname} [{variant}, "
+            f"{'16-byte' if vec else 'guarded'}]: max|kernel - plain| {err:.3e} of max|plain| "
             f"{float(want.nan_to_num(0).float().abs().max()):.4g}, within limits; the planted "
             f"NaN covers its 3x3 neighbourhood")
         del x, k, b, got, want
@@ -859,6 +885,31 @@ def check_conv3x3(dev, errors):
     errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
     log(f"kernel check: conv3x3_bias_lrelu (2, 16, 16, 64, 72) bf16 with an f32 bias "
         f"[tma_wgmma]: max|kernel - plain| {err:.3e}, within limits")
+
+    x, k, b = conv_ab.make_inputs((2, 16, 16, 64, 64), dev, torch.float32)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    plan = kernels.conv3x3_plan(*x.shape, 64, x.dtype, shifted.data_ptr() % 16)
+    before = kernels.conv3x3_variant_counts()["f32"]
+    err = conv_ab.check_against_plain(kernels.conv3x3_bias_lrelu(shifted, k, b, slope),
+                                      kernels.conv3x3_bias_lrelu_plain(x, k, b, slope))
+    if plan.vec or kernels.conv3x3_variant_counts()["f32"] != before + 1:
+        raise AssertionError(f"conv3x3 f32 on an x 4 bytes off 16: plan {plan}, launched "
+                             f"{kernels.conv3x3_variant_counts()['f32'] - before} f32")
+    errors["conv3x3_bias_lrelu"] = max(errors["conv3x3_bias_lrelu"], err)
+    log(f"kernel check: conv3x3_bias_lrelu (2, 16, 16, 64, 64) float32, x {shifted.data_ptr() % 16} "
+        f"bytes off 16 [f32, guarded]: max|kernel - plain| {err:.3e}, within limits")
+    for cin in (8, 5):  # 16-byte copies and guarded
+        x = torch.from_numpy(np.random.RandomState(3).randn(1, 4, 5, cin).astype(np.float32)).to(dev)
+        k = torch.zeros(3, 3, cin, 4, device=dev)
+        b = torch.tensor([0.0, -0.0, -1.5, 2.0], device=dev)
+        got = kernels.conv3x3_bias_lrelu(x, k, b, 0.2)
+        want = kernels.conv3x3_bias_lrelu_plain(x, k, b, 0.2)
+        if not (torch.equal(got, want) and torch.equal(got.signbit(), want.signbit())):
+            raise AssertionError(f"conv3x3 f32 at y = 0 (Cin {cin}): {got[0, 0, 0].tolist()} "
+                                 f"against {want[0, 0, 0].tolist()}")
+    log("kernel check: conv3x3_bias_lrelu float32 at y exactly 0 and -0 (Cin 8 and 5): "
+        "equal to the plain version, signs included")
 
     x, k, b = conv_ab.make_inputs((2, 9, 13, 5, 7), dev, torch.float32)
     for what, exc, call in (
@@ -1024,7 +1075,6 @@ def time_kernels(dev, tag, layouts):
     train step hands it on) and, beside it, contiguous."""
     import torch
 
-    from tpgan_tpu_torch.examples import conv_ab
     from tpgan_tpu_torch.ops import kernels
     from tpgan_tpu_torch.utils.timing import HBM_BYTES_PER_S, gpu_time_ms, rotated
 
@@ -1050,12 +1100,6 @@ def time_kernels(dev, tag, layouts):
             p_ms = gpu_time_ms(lambda: kernels.fuse_parts_plain(*copies[next(it) % len(copies)]), 50)
             row("fuse_parts", batch, f"C={c} {dname}", k_ms, p_ms, nbytes)
             del parts, copies
-
-    # K3 in f32 at the A/B's first shape (CUDA cores, TF32 off everywhere)
-    r = conv_ab.measure(conv_ab.SHAPES[0], dev, torch.float32)
-    log(f"time: conv3x3_bias_lrelu {tuple(r['shape'])} float32: kernel {r['kernel_us']:.2f} us, "
-        f"cuDNN {r['cudnn_us']:.2f} us, plain {r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us "
-        f"({r['bound_by']}; {r['bound_us'] / r['kernel_us']:.0%} of bound) {tag}")
 
     union = slot_union_pixels()
     for batch in (TRAIN_BATCH, 64):
@@ -4268,6 +4312,66 @@ def run_model_axis(dev, tag):
     return launches
 
 
+def run_conv_ab(dev, tag):
+    """Phase 9, K3's one path: ``conv_ab.run`` in bf16 and f32 at the three
+    A/B shapes, its launches held to its calls per variant, and profiles of
+    one kernel call and one cuDNN call at the dominant shape in each dtype.
+    Returns (the path's launch counts, its bf16 row and its f32 row at
+    (8, 128, 128, 64, 64))."""
+    import torch
+
+    from tpgan_tpu_torch.examples import conv_ab
+    from tpgan_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    ab_rows = conv_ab.run(dev, log=log)  # one JSON line per shape and dtype
+    torch.cuda.synchronize()
+    ab_launches = kernels.launch_counts()
+    ab_variants = kernels.conv3x3_variant_counts()
+    calls = {v: sum(r["kernel_calls"] for r in ab_rows if r["variant"] == v)
+             for v in ("tma_wgmma", "f32")}
+    mma_calls = sum(r["mma_sync_calls"] for r in ab_rows)
+    want_rows = [(s_, d) for s_ in conv_ab.SHAPES for d in ("bfloat16", "float32")]
+    if [(tuple(r["shape"]), r["dtype"]) for r in ab_rows] != want_rows or any(
+            r["variant"] != ("f32" if r["dtype"] == "float32" else "tma_wgmma") for r in ab_rows):
+        raise AssertionError("conv A/B rows: "
+                             f"{[(r['shape'], r['dtype'], r['variant']) for r in ab_rows]}")
+    total = calls["tma_wgmma"] + calls["f32"] + mma_calls
+    if ab_launches != {**dict.fromkeys(ab_launches, 0), "conv3x3_bias_lrelu": total}:
+        raise AssertionError(f"conv A/B launches {ab_launches}, expected {total} conv3x3 only")
+    if ab_variants != {"tma_wgmma": calls["tma_wgmma"], "mma_sync": mma_calls, "f32": calls["f32"]}:
+        raise AssertionError(f"conv A/B variants {ab_variants}: expected {calls['tma_wgmma']} "
+                             f"tma_wgmma, {mma_calls} mma_sync and {calls['f32']} f32")
+    log(f"conv A/B: {len(conv_ab.SHAPES)} shapes x bf16 and f32, {calls['tma_wgmma']} tma_wgmma "
+        f"+ {mma_calls} mma_sync + {calls['f32']} f32 calls = launches {ab_variants} {tag}")
+    for r in ab_rows:
+        if r["dtype"] == "float32":
+            log(f"time: conv3x3_bias_lrelu {tuple(r['shape'])} float32 [f32]: kernel "
+                f"{r['kernel_us']:.2f} us, cuDNN (TF32 off) {r['cudnn_us']:.2f} us, plain "
+                f"{r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us ({r['bound_by']}; "
+                f"{r['bound_us'] / r['kernel_us']:.0%} of bound; {r['cuda_vs_cudnn']:.2f}x cuDNN) {tag}")
+    # (8, 128, 128, 64, 64): the shape the JAX package calls dominant
+    conv_row, f32_row = ab_rows[0], ab_rows[1]
+    for dtype, variant in ((torch.bfloat16, "tma_wgmma"), (torch.float32, "f32")):
+        dname = str(dtype).replace("torch.", "")
+        x, k, b = conv_ab.make_inputs(conv_ab.SHAPES[0], dev, dtype)
+        weight = kernels.conv3x3_weight_oihw(k)
+        cudnn_call = lambda: kernels.conv3x3_bias_lrelu_cudnn(x, weight, b, conv_ab.NEGATIVE_SLOPE)
+        kernel_call = lambda: kernels.conv3x3_bias_lrelu(x, k, b, conv_ab.NEGATIVE_SLOPE)
+        kernel_call()
+        profile(kernel_call, 20, f"K3 {variant} {conv_ab.SHAPES[0]} {dname}", "call", tag,
+                {"K3": [f"conv3x3_{variant}_kernel"]})
+        with conv_ab.library_settings():  # the A/B's: cuDNN's algorithm is already chosen
+            cudnn_call()
+            profile(cudnn_call, 20, f"cuDNN conv + epilogue {conv_ab.SHAPES[0]} {dname}"
+                    f"{' (TF32 off)' if dtype == torch.float32 else ''}", "call", tag,
+                    {"conv": ["fprop", "conv", "sgemm"], "bias add": ["Functor_add"],
+                     "leaky_relu": ["leaky_relu"]})
+        del x, k, b, weight
+    return ab_launches, conv_row, f32_row
+
+
 def profile(fn, iters, what, unit, tag, names, before=None):
     """Busy/idle share, kernels per call, the top-8 kernels and the share
     of each named kernel, over ``iters`` calls of ``fn``; with ``before``,
@@ -4352,7 +4456,6 @@ def main() -> int:
         from tpgan_tpu_torch.config import make_config
         from tpgan_tpu_torch.data.synthetic import synthetic_gan_batch
         from tpgan_tpu_torch.entry import entry
-        from tpgan_tpu_torch.examples import conv_ab
         from tpgan_tpu_torch.models import generator as generator_module
         from tpgan_tpu_torch.ops import _build, kernels
         from tpgan_tpu_torch.train.gan_trainer import build_generator, make_synthesize_fn
@@ -4484,37 +4587,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rates = time_train(dev, tag)
 
-    # ---- 9. conv A/B: K3 against cuDNN's conv + epilogue ----
-    torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
-    ab_rows = conv_ab.run(dev, log=log)  # one JSON line per shape
-    torch.cuda.synchronize()
-    ab_launches = kernels.launch_counts()
-    ab_variants = kernels.conv3x3_variant_counts()
-    calls = sum(r["kernel_calls"] for r in ab_rows)
-    mma_calls = sum(r["mma_sync_calls"] for r in ab_rows)
-    if ab_launches != {**dict.fromkeys(ab_launches, 0), "conv3x3_bias_lrelu": calls + mma_calls}:
-        raise AssertionError(f"conv A/B launches {ab_launches}, expected {calls + mma_calls} "
-                             "conv3x3 only")
-    if ab_variants != {"tma_wgmma": calls, "mma_sync": mma_calls, "f32": 0}:
-        raise AssertionError(f"conv A/B variants {ab_variants}: expected {calls} tma_wgmma "
-                             f"and {mma_calls} mma_sync")
-    log(f"conv A/B: {len(ab_rows)} shapes, {calls} tma_wgmma + {mma_calls} mma_sync calls = "
-        f"launches {ab_variants} {tag}")
-    conv_row = ab_rows[0]  # (8, 128, 128, 64, 64): the shape the JAX package calls dominant
-    x, k, b = conv_ab.make_inputs(conv_ab.SHAPES[0], dev)
-    weight = kernels.conv3x3_weight_oihw(k)
-    cudnn_call = lambda: kernels.conv3x3_bias_lrelu_cudnn(x, weight, b, conv_ab.NEGATIVE_SLOPE)
-    kernel_call = lambda: kernels.conv3x3_bias_lrelu(x, k, b, conv_ab.NEGATIVE_SLOPE)
-    kernel_call()
-    profile(kernel_call, 20, f"K3 tma_wgmma {conv_ab.SHAPES[0]} bf16", "call", tag,
-            {"K3": ["conv3x3_tma_wgmma_kernel"]})
-    with conv_ab.library_settings():  # the A/B's: cuDNN's algorithm is already chosen
-        cudnn_call()
-        profile(cudnn_call, 20, f"cuDNN conv + epilogue {conv_ab.SHAPES[0]} bf16", "call", tag,
-                {"conv": ["fprop", "conv"], "bias add": ["Functor_add"],
-                 "leaky_relu": ["leaky_relu"]})
-    del x, k, b, weight
+    # ---- 9. conv A/B: K3 against cuDNN's conv + epilogue, bf16 and f32 ----
+    ab_launches, conv_row, f32_row = run_conv_ab(dev, tag)
 
     # ---- 10-13. the loop, multi-step, options, graphed synthesis ----
     torch.cuda.empty_cache()
@@ -4612,6 +4686,10 @@ def main() -> int:
         "bound_ms": conv_row["bound_us"] / 1e3,
         "bound_by": conv_row["bound_by"],
         "library_ms": conv_row["cudnn_us"] / 1e3,
+        # the f32 kernel at the same shape (CUDA cores; cuDNN with TF32 off)
+        "f32_ms": f32_row["kernel_us"] / 1e3,
+        "f32_bound_ms": f32_row["bound_us"] / 1e3,
+        "f32_library_ms": f32_row["cudnn_us"] / 1e3,
     })
     log("launches by path: " + "; ".join(
         f"{name} serve {serve_launches[name]}, train {train_launches[name]}, loop "

@@ -126,13 +126,18 @@ def test_cudnn_yardstick_computes_the_same_function():
 
 
 def test_conv_ab_entry_runs_on_the_cpu_when_asked():
+    """One row per dtype, bf16 then f32, each with its plan's variant."""
     lines = []
     rows = conv_ab.run("cpu", shapes=[(1, 6, 7, 8, 16)], log=lines.append)
-    assert len(rows) == len(lines) == 1
-    row = rows[0]
-    assert row["device"] == "cpu" and row["kernel_calls"] == 1 and row["max_abs_err"] == 0.0
-    assert row["kernel_us"] is None and row["cuda_vs_cudnn"] is None and row["card"] is None
-    assert row["bound_by"] == "bytes" and row["cudnn_max_abs_err"] < 0.05
+    assert len(rows) == len(lines) == 2
+    assert [(r["dtype"], r["variant"]) for r in rows] == [("bfloat16", "tma_wgmma"),
+                                                          ("float32", "f32")]
+    for row in rows:
+        assert row["device"] == "cpu" and row["kernel_calls"] == 1 and row["max_abs_err"] == 0.0
+        assert row["kernel_us"] is None and row["cuda_vs_cudnn"] is None and row["card"] is None
+        assert row["bound_by"] == "bytes" and row["mma_sync_calls"] == 0
+    assert rows[0]["cudnn_max_abs_err"] < 0.05
+    assert rows[1]["cudnn_max_abs_err"] < F32_ATOL
 
 
 def test_conv_ab_bounds_at_the_ab_shapes():
@@ -147,6 +152,20 @@ def test_conv_ab_bounds_at_the_ab_shapes():
         assert us == pytest.approx(max(nbytes / 3.35e12, flops / 989e12) * 1e6)
 
 
+@pytest.mark.parametrize("shape,nbytes,bound_us", [
+    (conv_ab.SHAPES[0], 67_256_576, 144.23),
+    (conv_ab.SHAPES[1], 34_144_768, 144.23),
+    (conv_ab.SHAPES[2], 69_469_184, 576.94),
+])
+def test_conv_ab_f32_bounds_are_the_cuda_cores(shape, nbytes, bound_us):
+    """f32: twice bf16's bytes, the same operations over the CUDA cores'
+    67 TFLOP/s; operations bound all three shapes."""
+    assert conv_ab.work(shape, torch.float32) == (nbytes, conv_ab.work(shape)[1])
+    us, by = conv_ab.bound(shape, torch.float32)
+    assert by == "operations"
+    assert round(us, 2) == bound_us
+
+
 @pytest.mark.parametrize("shape,rows,cols,bn,tiles_m,tiles_n", [
     ((8, 128, 128, 64, 64), 1, 128, 64, 8 * 128, 1),
     ((8, 64, 64, 128, 128), 2, 64, 128, 8 * 32, 1),
@@ -154,23 +173,24 @@ def test_conv_ab_bounds_at_the_ab_shapes():
 ])
 def test_conv3x3_plan_gives_the_ab_shapes_tma_wgmma(shape, rows, cols, bn, tiles_m, tiles_n):
     plan = kernels.conv3x3_plan(*shape, torch.bfloat16)
-    assert plan == ("tma_wgmma", rows, cols, bn, tiles_m, tiles_n)
+    assert plan == ("tma_wgmma", rows, cols, bn, tiles_m, tiles_n, True)
     assert plan.box == (64, cols, rows, 1)
 
 
-@pytest.mark.parametrize("shape,dtype,x_mod,w_mod,variant", [
-    ((2, 9, 13, 5, 7), torch.bfloat16, 0, 0, "mma_sync"),  # Cin, Cout not multiples of 8
-    ((2, 16, 16, 64, 60), torch.bfloat16, 0, 0, "mma_sync"),  # Cout alone
-    ((8, 128, 128, 64, 64), torch.bfloat16, 2, 0, "mma_sync"),  # a misaligned x
-    ((8, 128, 128, 64, 64), torch.bfloat16, 0, 8, "mma_sync"),  # a misaligned weight
-    ((8, 128, 128, 64, 64), torch.float32, 0, 0, "f32"),  # f32: the CUDA-core kernel
-    ((2, 9, 13, 5, 7), torch.float32, 0, 0, "f32"),
+@pytest.mark.parametrize("shape,dtype,x_mod,w_mod,variant,vec", [
+    ((2, 9, 13, 5, 7), torch.bfloat16, 0, 0, "mma_sync", False),  # Cin, Cout not multiples of 8
+    ((2, 16, 16, 64, 60), torch.bfloat16, 0, 0, "mma_sync", False),  # Cout alone
+    ((8, 128, 128, 64, 64), torch.bfloat16, 2, 0, "mma_sync", False),  # a misaligned x
+    ((8, 128, 128, 64, 64), torch.bfloat16, 0, 8, "mma_sync", False),  # a misaligned weight
+    ((8, 128, 128, 64, 64), torch.float32, 0, 0, "f32", True),  # f32: the CUDA-core kernel
+    ((2, 9, 13, 5, 7), torch.float32, 0, 0, "f32", False),
 ])
-def test_conv3x3_plan_keeps_the_other_cases_off_tma(shape, dtype, x_mod, w_mod, variant):
+def test_conv3x3_plan_keeps_the_other_cases_off_tma(shape, dtype, x_mod, w_mod, variant, vec):
     plan = kernels.conv3x3_plan(*shape, dtype, x_mod, w_mod)
     b, h, w, _, cout = shape
-    bm = 128 if dtype == torch.bfloat16 else 64
-    assert plan == (variant, 0, 0, 64, -(-b * h * w // bm), -(-cout // 64))
+    bm = 128 if dtype == torch.bfloat16 else 256  # f32 at Cout <= 64: 256 x 64 tiles
+    assert plan == (variant, 0, 0, 64, -(-b * h * w // bm), -(-cout // 64), vec)
+    assert plan.bm == bm
 
 
 def test_conv3x3_plan_boxes_stay_within_tma_limits():
@@ -198,3 +218,43 @@ def test_conv3x3_plan_picks_the_narrowest_compiled_n_tile():
     assert [p.bn for p in plans] == [64, 64, 128, 128, 256, 256, 256, 256]
     assert [p.tiles_n for p in plans] == [1, 1, 1, 1, 1, 1, 2, 3]
     assert all(p.bn in kernels.CONV3X3_BN for p in plans)
+
+
+@pytest.mark.parametrize("cin,cout,x_mod,w_mod,vec", [
+    (64, 64, 0, 0, True),
+    (8, 16, 0, 0, True),  # the JAX test's shape: one 16-channel step, half zero-filled
+    (72, 64, 0, 0, True),  # a chunk tail: 16-byte copies still (Cin % 4 == 0)
+    (12, 4, 0, 0, True),
+    (5, 64, 0, 0, False),  # Cin % 4: guarded
+    (64, 7, 0, 0, False),  # Cout % 4: guarded
+    (64, 66, 0, 0, False),
+    (64, 64, 4, 0, False),  # x misaligned by 4 bytes
+    (64, 64, 8, 0, False),
+    (64, 64, 0, 12, False),  # a misaligned weight
+])
+def test_conv3x3_f32_plan_picks_vector_or_guarded_copies(cin, cout, x_mod, w_mod, vec):
+    plan = kernels.conv3x3_plan(2, 16, 16, cin, cout, torch.float32, x_mod, w_mod)
+    assert (plan.variant, plan.vec) == ("f32", vec)
+    assert (plan.rows, plan.cols) == (0, 0)
+
+
+@pytest.mark.parametrize("shape,bn,tiles_m,tiles_n", [
+    ((8, 128, 128, 64, 64), 64, 512, 1),  # 256 x 64 tiles
+    ((8, 64, 64, 128, 128), 128, 256, 1),  # 128 x 128
+    ((32, 32, 32, 256, 256), 128, 256, 2),
+    ((2, 9, 13, 5, 7), 64, 1, 1),  # one M tile over 234 pixels
+    ((1, 1, 1, 8, 8), 64, 1, 1),
+    ((2, 6, 96, 64, 64), 64, 5, 1),  # 1,152 pixels: the fifth tile 128 rows
+    ((2, 16, 16, 64, 72), 128, 4, 1),  # an N tail: 72 of 128
+    ((2, 12, 12, 32, 200), 128, 3, 2),  # 288 pixels; two N tiles, the second 72 wide
+    ((2, 8, 8, 32, 264), 128, 1, 3),  # three N tiles, the third 8 wide
+    ((3, 17, 19, 24, 40), 64, 4, 1),
+])
+def test_conv3x3_f32_plan_tiles_cover_the_tails(shape, bn, tiles_m, tiles_n):
+    plan = kernels.conv3x3_plan(*shape, torch.float32)
+    b, h, w, _, cout = shape
+    assert (plan.bn, plan.tiles_m, plan.tiles_n) == (bn, tiles_m, tiles_n)
+    assert plan.bn in kernels.CONV3X3_F32_BN
+    assert plan.bm * plan.bn == kernels.CONV3X3_F32_TILE_OUTPUTS  # 8 x 8 outputs a thread
+    assert plan.tiles_m * plan.bm >= b * h * w > (plan.tiles_m - 1) * plan.bm
+    assert plan.tiles_n * plan.bn >= cout > (plan.tiles_n - 1) * plan.bn

@@ -547,6 +547,56 @@ def test_conv3x3_misaligned_x_takes_mma_sync(cuda):
     conv_ab.check_against_plain(got, kernels.conv3x3_bias_lrelu_plain(x, k, b, 0.2))
 
 
+@pytest.mark.parametrize("shape,bn,vec", [
+    (conv_ab.SHAPES[0], 64, True),  # 256 x 64 tiles
+    (conv_ab.SHAPES[1], 128, True),  # 128 x 128
+    (conv_ab.SHAPES[2], 128, True),  # two N tiles
+    ((2, 6, 96, 64, 64), 64, True),  # W 96: tiles run across image rows
+    ((2, 20, 8, 64, 64), 64, True),  # W 8
+    ((2, 1, 40, 64, 64), 64, True),  # H 1: only the middle row of taps in the image
+    ((1, 32, 32, 128, 128), 128, True),  # B 1
+    ((2, 16, 16, 72, 64), 64, True),  # Cin 72: the fifth 16-channel step half zero-filled
+    ((2, 9, 13, 5, 64), 64, False),  # Cin 5: guarded element-wise copies
+    ((2, 16, 16, 64, 72), 128, True),  # Cout 72: an N tail
+    ((2, 12, 12, 32, 200), 128, True),  # two N tiles, the second 72 wide
+    ((2, 8, 8, 32, 264), 128, True),  # three N tiles, the third 8 wide
+])
+def test_conv3x3_f32_kernel_equals_plain_version(cuda, shape, bn, vec):
+    """The f32 CUDA-core kernel at the A/B shapes and its tails, each in
+    the tile and copy path its plan gives, a NaN planted."""
+    plan = kernels.conv3x3_plan(*shape, torch.float32)
+    assert (plan.variant, plan.bn, plan.vec) == ("f32", bn, vec)
+    _check_conv3x3(shape, torch.float32, cuda, lambda x, k, b: kernels.conv3x3_bias_lrelu(
+        x, k, b, conv_ab.NEGATIVE_SLOPE), "f32")
+
+
+def test_conv3x3_f32_misaligned_x_takes_the_guarded_path(cuda):
+    x, k, b = conv_ab.make_inputs((2, 16, 16, 64, 64), cuda, torch.float32)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 4
+    plan = kernels.conv3x3_plan(*x.shape, 64, x.dtype, shifted.data_ptr() % 16)
+    assert (plan.variant, plan.vec) == ("f32", False)
+    before = kernels.conv3x3_variant_counts()["f32"]
+    got = kernels.conv3x3_bias_lrelu(shifted, k, b, 0.2)
+    torch.cuda.synchronize()
+    assert kernels.conv3x3_variant_counts()["f32"] == before + 1
+    conv_ab.check_against_plain(got, kernels.conv3x3_bias_lrelu_plain(x, k, b, 0.2))
+
+
+@pytest.mark.parametrize("cin", [8, 5])  # 16-byte copies and guarded
+def test_conv3x3_f32_kernel_leaky_relu_at_exact_zero(cuda, cin):
+    """A zero kernel leaves the bias: y = 0 and -0 stay as they are (the
+    y >= 0 branch), a negative bias is scaled by the slope; bit for bit."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(1, 4, 5, cin).astype(np.float32)).to(cuda)
+    k = torch.zeros(3, 3, cin, 4, device=cuda)
+    b = torch.tensor([0.0, -0.0, -1.5, 2.0], device=cuda)
+    got = kernels.conv3x3_bias_lrelu(x, k, b, 0.2)
+    want = kernels.conv3x3_bias_lrelu_plain(x, k, b, 0.2)
+    assert torch.equal(got, want) and torch.equal(got.signbit(), want.signbit())
+    assert got[0, 0, 0].tolist() == [0.0, 0.0, float(np.float32(-1.5) * np.float32(0.2)), 2.0]
+
+
 def test_conv3x3_kernel_takes_an_f32_bias_beside_bf16(cuda):
     for shape in ((2, 16, 16, 8, 16), (2, 16, 16, 64, 72)):  # both tma_wgmma
         x, k, b = conv_ab.make_inputs(shape, cuda, torch.bfloat16)

@@ -48,8 +48,9 @@
 //   come from shared memory through ldmatrix (rows padded by 16 bytes, so
 //   the eight row addresses of each 8x8 matrix hit distinct banks).
 // * f32: CUDA-core FMA (no TF32, so it can be held tightly to the plain
-//   version): a 64 x 64 tile per block, 4 x 4 outputs per thread, K steps of
-//   16 through shared memory.
+//   version): 256 threads of 8 x 8 outputs on a 256 x 64 or 128 x 128 tile,
+//   K tap by tap in 16-channel steps through a 4-stage cp.async ring; its
+//   design note heads the f32 path below.
 //
 // Bound, at the A/B's dominant shape (8, 128, 128, 64 -> 64) in bf16: x read
 // once and y written once, 33.6 MB in 10.0 us at 3.35 TB/s, against 9.66
@@ -59,7 +60,8 @@
 // address math per 16-byte chunk; the tma_wgmma design moves the copies to
 // the TMA unit and the products to wgmma, so the SMs' threads do only the
 // epilogue. Its nine per-tap loads read x about nine times, from L2. In f32
-// on CUDA cores (67 TFLOP/s) the first shape's floor is 144 us.
+// on CUDA cores (67 TFLOP/s) the operations bound all three shapes: 144,
+// 144 and 577 us.
 //
 // Index math is 32-bit: the wrapper raises where B*H*W*max(Cin, Cout) or
 // 9*Cin*Cout would not fit. The shape structs are read only by field name,
@@ -697,82 +699,243 @@ int launch_tma(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& 
 }
 
 // ----------------------------------------------------------------- f32 path
+//
+// CUDA-core FMA, no TF32, so it can be held tightly to the plain version.
+// Bound: the operations, 2 M 9 Cin Cout at 67 TFLOP/s (144 us at (8, 128,
+// 128, 64 -> 64), where x and y move in 20 us), so the design keeps the FMA
+// pipes fed and everything else off their issue slots:
+// * A block computes a BM x BN tile with 256 threads of 8 x 8 outputs each
+//   (256 x 64 for Cout <= 64, 128 x 128 beyond). Per 4-deep k step a thread
+//   reads 8 float4 of A and 8 of B from shared memory for 256 FMAs: one
+//   shared load per 16 FMAs (a 4 x 4 tile needs one per 8). That is still
+//   the balance of an SM's 128 FMA lanes against its 128 bytes per clock
+//   of shared memory, so the shared reads co-limit the kernel (on an H100
+//   a copy that read B 4x less often ran 12% faster); a wider thread tile
+//   needs more than the 128 registers of two blocks per SM.
+// * K = 9 Cin runs tap by tap, 16 channels at a time. A table of each tile
+//   row's in-image taps (a 9-bit word per pixel, made once per block) turns
+//   the halo and the M tail into a bit test, and a row's source is its
+//   pixel's offset plus one shift per step: no division per element.
+// * Copies go through cp.async into a ring of 4 stages (16 bytes each,
+//   past L1, zero-filled at the halo and the tails), so the loads of step
+//   k + 3 overlap the FMAs of step k, with one barrier per step.
+// * A lands as [pixel][channel] rows padded to 20 floats: the four pixel
+//   rows a warp reads at one k step fall on distinct banks. B lands as
+//   [k][n]; each thread's 8 columns are two float4 half a tile apart, so a
+//   warp's reads are contiguous, and so are its float4 stores of y.
+// * kVec = false (Cin or Cout not a multiple of 4, or x, w or y not
+//   16-byte aligned) copies element by element with 4-byte cp.async into
+//   the same ring and stores scalars.
 
-constexpr int kFBM = 64;
-constexpr int kFBN = 64;
-constexpr int kFBK = 16;
+constexpr int kFBK = 16;             // channels of one tap per k step
 constexpr int kFThreads = 256;
+constexpr int kFMinBlocks = 2;       // blocks per SM: at most 128 registers a thread
+constexpr int kFStages = 4;
+constexpr int kFAStride = kFBK + 4;  // floats per A row in shared memory (80 bytes)
 
-__global__ void __launch_bounds__(kFThreads)
+template <int BN>
+struct F32Tile {
+  static constexpr int kBM = kFThreads * 64 / BN;  // 8 x 8 outputs a thread: 256 or 128 rows
+  static_assert(kBM * 4 % kFThreads == 0 && kFBK * BN / 4 % kFThreads == 0, "whole copies");
+  static constexpr int kTN = BN / 8;               // threads along N
+  static constexpr int kTM = kFThreads / kTN;      // along M: kBM / 8
+  static constexpr int kAFloats = kBM * kFAStride;
+  static constexpr int kStageFloats = kAFloats + kFBK * BN;
+  // the ring, then one tap word per tile row: 97 KB at BN 64, 72.5 KB at
+  // 128, two blocks per SM
+  static constexpr int kSmemBytes = (kFStages * kStageFloats + kBM) * 4;
+};
+
+// 4 bytes, zero-filled where !ok (cp.async.cg takes only 16-byte copies;
+// those go through cp_async16, which bypasses L1: 2% faster on the card
+// than through it, the nine taps' rereads coming from L2)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(kFThreads, kFMinBlocks)
     conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const void* __restrict__ bias, int bias_f32, float* __restrict__ y,
                        ConvShape s) {
-  __shared__ __align__(16) float As[kFBK][kFBM + 4];  // A transposed: [k][m]
-  __shared__ __align__(16) float Bs[kFBK][kFBN];
+  using Tile = F32Tile<BN>;
+  constexpr int BM = Tile::kBM;
+  extern __shared__ __align__(16) float fsmem[];
+  uint32_t* taps_of = reinterpret_cast<uint32_t*>(fsmem + kFStages * Tile::kStageFloats);
 
   const int tid = threadIdx.x;
-  const int n0 = (blockIdx.x % s.n_tiles) * kFBN;
-  const int m0 = (blockIdx.x / s.n_tiles) * kFBM;
-  const int ty = tid >> 4;  // output rows 4*ty ..
-  const int tx = tid & 15;  // output columns 4*tx ..
+  const int n0 = (blockIdx.x % s.n_tiles) * BN;
+  const int m0 = (blockIdx.x / s.n_tiles) * BM;
 
-  // loads: A column kk of rows (tid >> 4) + 16 i; B row (tid >> 6) + 4 j,
-  // column tid & 63
-  const int kk = tid & 15;
-  int a_m[4], a_oh[4], a_ow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + (tid >> 4) + 16 * i;
-    a_m[i] = m;
-    a_ow[i] = m % s.w;
-    a_oh[i] = m < s.m ? (m / s.w) % s.h : -4;
+  // bit 3 dh + dw of a row's word: its pixel's tap (dh, dw) lies in the
+  // image; no bit for a row past M
+  for (int r = tid; r < BM; r += kFThreads) {
+    const int m = m0 + r;
+    uint32_t taps = 0;
+    if (m < s.m) {
+      const int ow = m % s.w;
+      const int oh = (m / s.w) % s.h;
+      const uint32_t cols = (ow > 0 ? 1u : 0u) | 2u | (ow + 1 < s.w ? 4u : 0u);
+      taps = (oh > 0 ? cols : 0u) | cols << 3 | (oh + 1 < s.h ? cols << 6 : 0u);
+    }
+    taps_of[r] = taps;
   }
+  __syncthreads();
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const int ksteps = 9 * ((s.cin + kFBK - 1) / kFBK);
+  int ld_tap = 0, ld_c0 = 0;  // the next step to load: its tap and first channel
 
-  for (int k0 = 0; k0 < s.k; k0 += kFBK) {
+  auto load_stage = [&](int stage) {
+    float* as = fsmem + stage * Tile::kStageFloats;
+    float* bs = as + Tile::kAFloats;
+    const int dh = ld_tap / 3;
+    const int dw = ld_tap - 3 * dh;
+    const int shift = ((dh - 1) * s.w + (dw - 1)) * s.cin + ld_c0;  // from a pixel's own row
+    const float* wk = w + (ld_tap * s.cin + ld_c0) * s.cout + n0;
+    if constexpr (kVec) {
+      const int q = (tid & 3) * 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off = a_offset(s, a_m[i], a_oh[i], a_ow[i], k0 + kk);
-      As[kk][(tid >> 4) + 16 * i] = off >= 0 ? x[off] : 0.0f;
+      for (int i = 0; i < BM * 4 / kFThreads; ++i) {
+        const int r = (tid >> 2) + kFThreads / 4 * i;
+        const bool ok = (taps_of[r] >> ld_tap & 1u) && ld_c0 + q < s.cin;
+        cp_async16(as + r * kFAStride + q, ok ? x + (m0 + r) * s.cin + shift + q : x, ok);
+      }
+#pragma unroll
+      for (int j = 0; j < kFBK * BN / 4 / kFThreads; ++j) {
+        const int id = tid + kFThreads * j;
+        const int kr = id / (BN / 4);
+        const int nc = (id % (BN / 4)) * 4;
+        const bool ok = ld_c0 + kr < s.cin && n0 + nc < s.cout;
+        cp_async16(bs + kr * BN + nc, ok ? wk + kr * s.cout + nc : w, ok);
+      }
+    } else {
+      // not unrolled: the rare path keeps to the registers the FMA loop leaves
+      const int kk = tid % kFBK;
+#pragma unroll 1
+      for (int i = 0; i < BM * kFBK / kFThreads; ++i) {
+        const int r = tid / kFBK + kFThreads / kFBK * i;
+        const bool ok = (taps_of[r] >> ld_tap & 1u) && ld_c0 + kk < s.cin;
+        cp_async4(as + r * kFAStride + kk, ok ? x + (m0 + r) * s.cin + shift + kk : x, ok);
+      }
+#pragma unroll 1
+      for (int j = 0; j < kFBK * BN / kFThreads; ++j) {
+        const int id = tid + kFThreads * j;
+        const int kr = id / BN;
+        const int nn = id % BN;
+        const bool ok = ld_c0 + kr < s.cin && n0 + nn < s.cout;
+        cp_async4(bs + kr * BN + nn, ok ? wk + kr * s.cout + nn : w, ok);
+      }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kr = (tid >> 6) + 4 * j;
-      const int k = k0 + kr;
-      const int n = n0 + (tid & 63);
-      Bs[kr][tid & 63] = (k < s.k && n < s.cout) ? w[k * s.cout + n] : 0.0f;
+    ld_c0 += kFBK;
+    if (ld_c0 >= s.cin) {
+      ld_c0 = 0;
+      ++ld_tap;
     }
-    __syncthreads();
+  };
+
+  // thread (tm, tn) owns rows tm + kTM i and columns 4 tn + (0..3), BN / 2
+  // + 4 tn + (0..3)
+  const int tn = tid % Tile::kTN;
+  const int tm = tid / Tile::kTN;
+  float acc[8][8];
 #pragma unroll
-    for (int q = 0; q < kFBK; ++q) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[q][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[q][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bw[4] = {b.x, b.y, b.z, b.w};
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int st = 0; st < kFStages - 1; ++st) {  // ksteps >= 9 > kFStages - 1
+    load_stage(st);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < ksteps; ++kt) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // step kt has landed; the stage of step kt - 1 is free again
+    if (kt + kFStages - 1 < ksteps) load_stage((kt + kFStages - 1) % kFStages);
+    cp_async_commit();
 
+    const float* as = fsmem + (kt % kFStages) * Tile::kStageFloats + tm * kFAStride;
+    const float* bs = fsmem + (kt % kFStages) * Tile::kStageFloats + Tile::kAFloats + 4 * tn;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + 4 * tx + j;
-    if (n >= s.cout) continue;
-    const float bj = bias_at(bias, bias_f32, n);
+    for (int kq = 0; kq < kFBK; kq += 4) {
+      float b[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + 4 * ty + i;
-      if (m < s.m) y[m * s.cout + n] = lrelu(acc[i][j] + bj, s.slope);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 lo = *reinterpret_cast<const float4*>(bs + (kq + kk) * BN);
+        const float4 hi = *reinterpret_cast<const float4*>(bs + (kq + kk) * BN + BN / 2);
+        b[kk][0] = lo.x;
+        b[kk][1] = lo.y;
+        b[kk][2] = lo.z;
+        b[kk][3] = lo.w;
+        b[kk][4] = hi.x;
+        b[kk][5] = hi.y;
+        b[kk][6] = hi.z;
+        b[kk][7] = hi.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(as + i * Tile::kTM * kFAStride + kq);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, b[0][j], acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[1][j], acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[2][j], acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[3][j], acc[i][j]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  float bv[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + (j >> 2) * (BN / 2) + 4 * tn + (j & 3);
+    bv[j] = n < s.cout ? bias_at(bias, bias_f32, n) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tm + Tile::kTM * i;
+    if (m >= s.m) continue;
+    float* row = y + m * s.cout;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * (BN / 2) + 4 * tn;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = lrelu(acc[i][4 * h + q] + bv[4 * h + q], s.slope);
+      if constexpr (kVec) {
+        if (n < s.cout)  // Cout % 4 == 0: n < Cout covers n + 3
+          *reinterpret_cast<float4*>(row + n) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (n + q < s.cout) row[n + q] = v[q];
+      }
+    }
+  }
+}
+
+template <int BN, bool kVec>
+int launch_f32(const float* x, const float* w, const void* bias, int bias_f32, float* y,
+               const ConvShape& s, unsigned int blocks, cudaStream_t st) {
+  // above 48 KB of dynamic shared memory a kernel must ask, once per device
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(conv3x3_f32_kernel<BN, kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F32Tile<BN>::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  conv3x3_f32_kernel<BN, kVec><<<blocks, kFThreads, F32Tile<BN>::kSmemBytes, st>>>(
+      x, w, bias, bias_f32, y, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 ConvShape make_shape(int b, int h, int w, int cin, int cout, float slope, int bn) {
@@ -820,17 +983,32 @@ extern "C" int tpgan_conv3x3_bias_lrelu_bf16(const void* x, const void* wt, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 kernel; the wrapper's plan gives BN (64: 256 x 64 tiles; 128:
+// 128 x 128) and vec (16-byte copies and stores: Cin and Cout multiples of
+// 4 and x, wt and y 16-byte aligned; 0 copies element by element).
+// Returns cudaErrorInvalidValue for a vec the call cannot take, another BN
+// or a pointer that is not 4-byte aligned.
 extern "C" int tpgan_conv3x3_bias_lrelu_f32(const void* x, const void* wt, const void* bias,
                                             int bias_f32, void* y, int b, int h, int w, int cin,
-                                            int cout, float slope, void* stream) {
-  const ConvShape s = make_shape(b, h, w, cin, cout, slope, kFBN);
+                                            int cout, int bn, int vec, float slope, void* stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt) |
+                         reinterpret_cast<uintptr_t>(y);
+  if (addr % 4 != 0 || (bn != 64 && bn != 128) ||
+      (vec && (cin % 4 != 0 || cout % 4 != 0 || addr % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvShape s = make_shape(b, h, w, cin, cout, slope, bn);
   unsigned int blocks;
-  const int err = blocks_for(s, kFBM, &blocks);
+  const int err = blocks_for(s, kFThreads * 64 / bn, &blocks);
   if (err) return err;
-  conv3x3_f32_kernel<<<blocks, kFThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt), bias, bias_f32,
-      static_cast<float*>(y), s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(wt);
+  float* yp = static_cast<float*>(y);
+  if (bn == 64)
+    return vec ? launch_f32<64, true>(xp, wp, bias, bias_f32, yp, s, blocks, st)
+               : launch_f32<64, false>(xp, wp, bias, bias_f32, yp, s, blocks, st);
+  return vec ? launch_f32<128, true>(xp, wp, bias, bias_f32, yp, s, blocks, st)
+             : launch_f32<128, false>(xp, wp, bias, bias_f32, yp, s, blocks, st);
 }
 
 // The TMA + wgmma kernel; the wrapper's plan gives the M tile (rows x cols

@@ -3,13 +3,15 @@
 
 The port's counterpart of ``examples/pallas_conv_ab.py``, at its three
 head-area shapes and with its inputs (``RandomState(0)`` normals, weights
-x0.05, everything in bf16, slope 0.2). Per shape it checks the kernel the
-plan picks (``kernels.conv3x3_plan``: ``tma_wgmma`` at these shapes) and
-the general ``mma_sync`` kernel against the plain version, then prints
-one JSON line: µs per call of the kernel, of ``mma_sync`` (timed in turns
-with it: mma_sync, kernel, kernel, mma_sync), of cuDNN and of the plain
-version (CUDA events after a sleep kernel, inputs rotated past the 50 MB
-L2), convs/s, the bound and the card's name and power limit.
+x0.05, slope 0.2), in bf16 and in f32. Per shape and dtype it checks the
+kernel the plan picks (``kernels.conv3x3_plan``: ``tma_wgmma`` in bf16 at
+these shapes, the CUDA-core ``f32`` kernel in f32) and, in bf16, the
+general ``mma_sync`` kernel against the plain version, then prints one
+JSON line: µs per call of the kernel, of ``mma_sync`` (timed in turns
+with it: mma_sync, kernel, kernel, mma_sync), of cuDNN (f32 with TF32
+off) and of the plain version (CUDA events after a sleep kernel, inputs
+rotated past the 50 MB L2), convs/s, the bound and the card's name and
+power limit.
 
     python -m tpgan_tpu_torch.examples.conv_ab              # on cuda
     python -m tpgan_tpu_torch.examples.conv_ab --device cpu # plain version; no times
@@ -39,6 +41,7 @@ SHAPES = (
     (8, 64, 64, 128, 128),
     (32, 32, 32, 256, 256),
 )
+DTYPES = (torch.bfloat16, torch.float32)
 NEGATIVE_SLOPE = 0.2
 ITERS = {"kernel": 100, "mma_sync": 100, "cudnn": 100, "plain": 10}
 # The kernel against its plain version, per element: within one bf16 ulp
@@ -198,14 +201,15 @@ def run(
     shapes: Sequence[Shape] = SHAPES,
     log=print,
 ) -> List[dict]:
-    """The A/B in bf16 at every shape: one dict per shape (``measure``),
-    each printed as a JSON line through ``log``."""
+    """The A/B at every shape in bf16 and f32: one dict per shape and
+    dtype (``measure``), each printed as a JSON line through ``log``."""
     device = resolve_device(device)
     rows = []
     for shape in shapes:
-        row = measure(shape, device)
-        log(json.dumps(row))
-        rows.append(row)
+        for dtype in DTYPES:
+            row = measure(shape, device, dtype)
+            log(json.dumps(row))
+            rows.append(row)
     return rows
 
 

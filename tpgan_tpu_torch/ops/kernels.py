@@ -62,7 +62,9 @@ only (source: ``tpgan_tpu_torch/csrc/conv3x3.cu``).
   ``tma_wgmma`` (TMA loads of 128-pixel image rectangles per tap, zero-
   filled outside x; ``wgmma`` from a producer-fed ``mbarrier`` ring; a TMA
   store of the tile); other bf16 takes ``mma_sync``; f32 runs on CUDA
-  cores. ``conv3x3_variant_counts`` counts the launches of each.
+  cores (8 x 8 outputs a thread, a 4-stage ``cp.async`` ring, taps by a
+  per-pixel bit table; bound by its 9.66 GFLOP at 67 TFLOP/s, 144 us).
+  ``conv3x3_variant_counts`` counts the launches of each.
 
 Layout: contiguous NCHW for K1 and K2, as the port's modules emit it; NHWC
 x and HWIO weight for K3, the JAX function's. f32 and bf16. A CPU tensor
@@ -743,11 +745,13 @@ def conv3x3_bias_lrelu_cudnn(
     return F.leaky_relu(y, negative_slope, inplace=True).permute(0, 2, 3, 1)
 
 
-CONV3X3_TILE_PIXELS = 128  # M rows of every K3 tile
+CONV3X3_TILE_PIXELS = 128  # M rows of every bf16 K3 tile
 CONV3X3_K_CHANNELS = 64  # channels per TMA box and k-block: 128 bytes of bf16
 TMA_BOX_MAX = 256  # TMA's limit on each box dimension
 TMA_SWIZZLE_BYTES = 128  # inner box bytes the 128-byte swizzle allows
 CONV3X3_BN = (64, 128, 256)  # the tma_wgmma kernel's compiled N tiles
+CONV3X3_F32_BN = (64, 128)  # the f32 kernel's compiled N tiles
+CONV3X3_F32_TILE_OUTPUTS = 256 * 64  # 256 threads of 8 x 8 outputs: BM x BN
 
 
 class Conv3x3Plan(NamedTuple):
@@ -757,11 +761,19 @@ class Conv3x3Plan(NamedTuple):
     bn: int  # output channels per tile
     tiles_m: int
     tiles_n: int
+    vec: bool  # 16-byte copies (True) or guarded element-wise loads (False)
 
     @property
     def box(self) -> Tuple[int, int, int, int]:
         """tma_wgmma's TMA box over x and y seen as (C, W, H, B)."""
         return (CONV3X3_K_CHANNELS, self.cols, self.rows, 1)
+
+    @property
+    def bm(self) -> int:
+        """Output pixels per M tile."""
+        if self.variant == "f32":
+            return CONV3X3_F32_TILE_OUTPUTS // self.bn
+        return CONV3X3_TILE_PIXELS
 
 
 def conv3x3_plan(
@@ -774,31 +786,39 @@ def conv3x3_plan(
     cols the largest power of two <= min(W, 128); BN is the narrowest
     compiled width (64, 128, 256) that covers Cout, 256 beyond it (the
     fastest on the card at Cout 64, 128 and 256). Other bf16 takes
-    ``mma_sync`` (128 x 64 tiles over B*H*W), f32 the CUDA-core kernel
-    (64 x 64). There is no fallback between them."""
-    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and x_ptr_mod16 == 0 \
-            and w_ptr_mod16 == 0:
+    ``mma_sync`` (128 x 64 tiles over B*H*W; guarded scalar loads, since
+    every such call has Cin or Cout % 8 or a misaligned pointer). f32 takes the CUDA-core kernel: BN 64 (256 x 64 tiles) for
+    Cout <= 64, else 128 (128 x 128), over B*H*W; 16-byte copies when Cin
+    and Cout are multiples of 4 and x and the weight are 16-byte aligned
+    (the wrapper's y always is), else guarded. There is no fallback between
+    them."""
+    aligned = x_ptr_mod16 == 0 and w_ptr_mod16 == 0
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and aligned:
         cols = 1 << (min(w, CONV3X3_TILE_PIXELS).bit_length() - 1)
         rows = CONV3X3_TILE_PIXELS // cols
         bn = next((n for n in CONV3X3_BN if n >= cout), CONV3X3_BN[-1])
         return Conv3x3Plan("tma_wgmma", rows, cols, bn, b * -(-h // rows) * -(-w // cols),
-                           -(-cout // bn))
-    bm, bn = (128, 64) if dtype == torch.bfloat16 else (64, 64)
-    variant = "mma_sync" if dtype == torch.bfloat16 else "f32"
-    return Conv3x3Plan(variant, 0, 0, bn, -(-b * h * w // bm), -(-cout // bn))
+                           -(-cout // bn), True)
+    if dtype == torch.bfloat16:
+        return Conv3x3Plan("mma_sync", 0, 0, 64, -(-b * h * w // CONV3X3_TILE_PIXELS),
+                           -(-cout // 64), False)
+    bn = next((n for n in CONV3X3_F32_BN if n >= cout), CONV3X3_F32_BN[-1])
+    return Conv3x3Plan("f32", 0, 0, bn, -(-b * h * w // (CONV3X3_F32_TILE_OUTPUTS // bn)),
+                       -(-cout // bn), cin % 4 == 0 and cout % 4 == 0 and aligned)
 
 
 @functools.lru_cache(maxsize=None)
 def _conv3x3_lib() -> ctypes.CDLL:
     lib = _build.load(CONV3X3_SOURCE)
     head = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    for suffix in _DTYPE_SUFFIX.values():
-        fn = getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}")
-        fn.argtypes = head + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    fn = lib.tpgan_conv3x3_bias_lrelu_tma_wgmma
-    fn.argtypes = head + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tpgan_conv3x3_bias_lrelu_bf16.argtypes = (head + [ctypes.c_int] * 5
+                                                  + [ctypes.c_float, ctypes.c_void_p])
+    lib.tpgan_conv3x3_bias_lrelu_f32.argtypes = (head + [ctypes.c_int] * 7
+                                                 + [ctypes.c_float, ctypes.c_void_p])
+    lib.tpgan_conv3x3_bias_lrelu_tma_wgmma.argtypes = (head + [ctypes.c_int] * 8
+                                                       + [ctypes.c_float, ctypes.c_void_p])
+    for suffix in ("bf16", "f32", "tma_wgmma"):
+        getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}").restype = ctypes.c_int
     return lib
 
 
@@ -809,7 +829,7 @@ def _launch_conv3x3(
     """K3 on the card, the kernel ``conv3x3_plan`` picks; ``variant=
     "mma_sync"`` runs the general bf16 kernel on any bf16 shape instead
     (the A/B times it beside the plan's)."""
-    suffix = _check_launchable("conv3x3_bias_lrelu", [x, kernel, bias], layout="NHWC/HWIO")
+    _check_launchable("conv3x3_bias_lrelu", [x, kernel, bias], layout="NHWC/HWIO")
     if bias.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"conv3x3_bias_lrelu kernel takes a float32 or bfloat16 bias, got "
                         f"{bias.dtype}")
@@ -834,9 +854,11 @@ def _launch_conv3x3(
         if plan.variant == "tma_wgmma":
             err = lib.tpgan_conv3x3_bias_lrelu_tma_wgmma(
                 *args, plan.rows, plan.cols, plan.bn, float(negative_slope), _stream())
+        elif plan.variant == "f32":
+            err = lib.tpgan_conv3x3_bias_lrelu_f32(
+                *args, plan.bn, int(plan.vec), float(negative_slope), _stream())
         else:
-            err = getattr(lib, f"tpgan_conv3x3_bias_lrelu_{suffix}")(
-                *args, float(negative_slope), _stream())
+            err = lib.tpgan_conv3x3_bias_lrelu_bf16(*args, float(negative_slope), _stream())
     _raise_on(err, f"conv3x3_bias_lrelu ({plan.variant})")
     _LAUNCHES["conv3x3_bias_lrelu"] += 1
     _CONV3X3_VARIANTS[plan.variant] += 1
