@@ -733,6 +733,101 @@ def test_graphed_synthesis_equals_eager(cuda, dtype):
     assert graphed.launches()[2]["fuse_parts"] == 3 and sorted(graphed.launches()) == [2, 3]
 
 
+def _one_dispatch_of(prof, tmp_path, replays):
+    """The trace holds one ``graph.dispatch`` span, and the ``replays``
+    graph launches the host made all lie inside it."""
+    import json
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+
+    def spans(cat, name):
+        return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in events
+                if e.get("cat") == cat and e.get("name") == name]
+
+    dispatches = spans("user_annotation", "graph.dispatch")
+    assert len(dispatches) == 1, dispatches
+    (start, end), = dispatches
+    launches = spans("cuda_runtime", "cudaGraphLaunch")
+    assert len(launches) == replays, launches
+    assert all(start <= a <= b <= end for a, b in launches)
+
+
+def test_multi_step_counts_its_capture_and_spans_each_dispatch(cuda, tmp_path):
+    """The first call adds its capture's seconds to ``capture_seconds()``
+    and later calls add nothing; a profiled call is one ``graph.dispatch``
+    holding its K replays."""
+    from tpgan_tpu_torch.train.gan_trainer import make_multi_step
+    from tpgan_tpu_torch.utils import graphs
+
+    cfg = make_config(dict(SMALL, compute_dtype="bfloat16"))
+    state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, cuda)
+    multi = make_multi_step(make_gan_train_step(cfg, gen, disc, g_opt, d_opt), 3)
+    batches = [synthetic_gan_batch(2, seed=s) for s in range(3)]
+    super_batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    before = graphs.capture_seconds()
+    state, _ = multi(state, super_batch, generator)
+    torch.cuda.synchronize()
+    first = graphs.capture_seconds()
+    assert first > before
+    _profiler_warm_up(cuda)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = multi(state, super_batch, generator)
+        torch.cuda.synchronize()
+    state, _ = multi(state, super_batch, generator)
+    torch.cuda.synchronize()
+    assert graphs.capture_seconds() == first
+    _one_dispatch_of(prof, tmp_path, 3)
+
+
+def test_graphed_per_shape_counts_its_capture_and_spans_each_call(cuda, tmp_path):
+    from tpgan_tpu_torch.utils import graphs
+
+    graphed = graphs.graphed_per_shape(lambda x: (x * 2.0 + 1.0).relu(), cuda)
+    x = torch.randn(4, 8)
+    before = graphs.capture_seconds()
+    graphed(x)
+    first = graphs.capture_seconds()
+    assert first > before
+    _profiler_warm_up(cuda)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = graphed(x)
+        torch.cuda.synchronize()
+    assert graphs.capture_seconds() == first
+    assert torch.equal(got.cpu(), (x * 2.0 + 1.0).relu())
+    _one_dispatch_of(prof, tmp_path, 1)
+
+
+def test_a_capture_leaves_the_kernel_build_out_of_its_seconds(cuda, monkeypatch):
+    """A kernel built in the warm-up (here a first call that stands for a
+    1-s nvcc build) adds its seconds to ``ops._build.build_seconds()`` and
+    none to the capture's."""
+    import time
+
+    from tpgan_tpu_torch.ops import _build
+    from tpgan_tpu_torch.utils import graphs
+
+    x = torch.ones(8, device=cuda)
+    calls = []
+
+    def fn():
+        if not calls:
+            time.sleep(1.0)
+            monkeypatch.setattr(_build, "_build_seconds", _build.build_seconds() + 1.0)
+        calls.append(1)
+        return x * 2.0
+
+    before = graphs.capture_seconds()
+    graph, out, _launches = graphs.capture(fn, warmup=1)
+    graph.replay()
+    assert torch.equal(out, x * 2.0) and len(calls) == 2
+    assert 0.0 < graphs.capture_seconds() - before < 0.5
+
+
 # ---- the data path on the card ----------------------------------------
 
 def test_decode_u8_on_the_card_is_correctly_rounded(cuda):

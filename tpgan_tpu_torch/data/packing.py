@@ -29,6 +29,7 @@ import torch
 
 from tpgan_tpu_torch.data import native
 from tpgan_tpu_torch.parallel.sharding import shard_rows
+from tpgan_tpu_torch.utils import trace
 from tpgan_tpu_torch.utils.device import resolve_device
 
 INDEX_NAME = "index.json"
@@ -187,7 +188,11 @@ def device_batch_iterator(
 
     ``shard`` = (r, n) (a mesh's ``data_shard``): every rank draws the same
     global indices and gathers only its rows ``[r * b, (r + 1) * b)`` of
-    them, ``batch_size`` being the global batch."""
+    them, ``batch_size`` being the global batch.
+
+    Drawing and gathering a batch is the span ``data.sample``, and the
+    index vector's copy to the device inside it ``data.index_copy``
+    (``utils.trace``)."""
     first = next(iter(data.values()))
     n, device = int(first.shape[0]), first.device
     rng = np.random.RandomState(seed)
@@ -200,15 +205,23 @@ def device_batch_iterator(
             raise ValueError("weights must be non-negative with a "
                              "positive sum")
         p = p / p.sum()
+
+    # a function, so that the generator's frame does not hold the batch it
+    # yielded (device memory) until the next one is drawn
+    def sample() -> Dict[str, torch.Tensor]:
+        with trace.span("data.sample"):
+            if p is None:
+                idx = rng.randint(0, n, size=(batch_size,))
+            else:
+                idx = rng.choice(n, size=(batch_size,), p=p)
+            if shard is not None:
+                idx = shard_rows(idx, shard)
+            with trace.span("data.index_copy"):
+                idx = torch.from_numpy(idx.astype(np.int64)).to(device)
+            return {k: v.index_select(0, idx) for k, v in data.items()}
+
     while True:
-        if p is None:
-            idx = rng.randint(0, n, size=(batch_size,))
-        else:
-            idx = rng.choice(n, size=(batch_size,), p=p)
-        if shard is not None:
-            idx = shard_rows(idx, shard)
-        idx = torch.from_numpy(idx.astype(np.int64)).to(device)
-        yield {k: v.index_select(0, idx) for k, v in data.items()}
+        yield sample()
 
 
 # --------------------------------------------------------------------------
@@ -256,7 +269,8 @@ def pixel_budget_batches(groups: Groups, batch_size: int) -> Dict[tuple, int]:
 
 
 def _take(group: Dict[str, torch.Tensor], idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-    idx_t = torch.from_numpy(idx.astype(np.int64)).to(group["img"].device)
+    with trace.span("data.index_copy"):
+        idx_t = torch.from_numpy(idx.astype(np.int64)).to(group["img"].device)
     return group["img"].index_select(0, idx_t), group["label"].index_select(0, idx_t)
 
 
@@ -271,15 +285,21 @@ def device_bucketed_batch_iterator(
     from ``np.random.RandomState(seed)`` (``choice``, then ``randint``) as
     in the JAX package, so both take the same items for the same seed;
     only the index vector crosses to the device. ``batch_for``: the batch
-    size per bucket (:func:`pixel_budget_batches`)."""
+    size per bucket (:func:`pixel_budget_batches`). The spans are
+    :func:`device_batch_iterator`'s."""
     keys = sorted(groups)
     bs = {k: (batch_for or {}).get(k, batch_size) for k in keys}
     steps = np.asarray([int(groups[k]["img"].shape[0]) / bs[k] for k in keys], np.float64)
     probs = steps / steps.sum()
     rng = np.random.RandomState(seed)
+
+    def sample() -> Tuple[torch.Tensor, torch.Tensor]:  # as device_batch_iterator's
+        with trace.span("data.sample"):
+            k = keys[int(rng.choice(len(keys), p=probs))]
+            return _take(groups[k], rng.randint(0, int(groups[k]["img"].shape[0]), size=(bs[k],)))
+
     while True:
-        k = keys[int(rng.choice(len(keys), p=probs))]
-        yield _take(groups[k], rng.randint(0, int(groups[k]["img"].shape[0]), size=(bs[k],)))
+        yield sample()
 
 
 def device_bucketed_eval_batches(

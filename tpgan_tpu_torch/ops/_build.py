@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -36,6 +37,10 @@ HOST_SOURCE = "host/tpgan_host.cpp"
 # a library tuned to one host's CPU could fault on another's
 HOST_FLAGS = ("-O3", "-shared", "-fPIC")
 HOST_TIMEOUT_S = 180
+
+# Host seconds this process has spent in :func:`build` compiling; a graph
+# capture whose warm-up builds a kernel leaves them out of its own time.
+_build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -62,6 +67,8 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
     """Compile every source not built yet — one ``nvcc`` process each, all
     started together — and return {source: library path}. Raises with
     the compiler's output if any build fails."""
+    global _build_seconds
+    start = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for source in sources:
@@ -88,9 +95,16 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
             failures.append(f"{source}: nvcc exited {proc.returncode}\n{text}")
         else:
             os.replace(tmp, lib)
+    if running:
+        _build_seconds += time.perf_counter() - start
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return {source: library_path(source) for source in sources}
+
+
+def build_seconds() -> float:
+    """Host seconds spent compiling in :func:`build` so far."""
+    return _build_seconds
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -66,7 +66,7 @@ from tpgan_tpu_torch.parallel.collectives import all_reduce_metrics
 from tpgan_tpu_torch.parallel.mesh import data_group
 from tpgan_tpu_torch.parallel.sharding import mean_gradients_, metrics_group
 from tpgan_tpu_torch.train.optim import adam_wgan, make_capturable
-from tpgan_tpu_torch.utils import graphs
+from tpgan_tpu_torch.utils import graphs, trace
 from tpgan_tpu_torch.utils.device import resolve_device
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
@@ -574,8 +574,9 @@ def make_multi_step(train_step, num_steps: int):
     ``load_state_dict``, for one) makes it raise, as does a failed
     capture; nothing falls back to eager steps. Replays add nothing to
     ``ops.kernels.launch_counts``; ``multi_step.launches()`` is the
-    capture's record of one replay. On the CPU it runs K eager steps (the
-    plain form).
+    capture's record of one replay. On the card a call is the span
+    ``graph.dispatch`` (``utils.trace``). On the CPU it runs K eager steps
+    (the plain form).
 
     A step over a mesh (``make_gan_train_step(mesh=...)``) captures its
     NCCL all-reduces in the graph. Over gloo it raises: gloo's
@@ -630,13 +631,17 @@ def make_multi_step(train_step, num_steps: int):
                         ptrs=[t.data_ptr() for t in _written_tensors(state)])
 
     def multi_step(state: GANTrainState, super_batch: Batch, generator: torch.Generator):
-        batches = split(super_batch)
         if next(state.gen.parameters()).device.type != "cuda":
             history = []
-            for batch in batches:
+            for batch in split(super_batch):
                 state, metrics = train_step(state, batch, generator)
                 history.append(metrics)
             return state, _stack(history)
+        with trace.span("graph.dispatch"):
+            return run_graph(state, split(super_batch), generator)
+
+    def run_graph(state: GANTrainState, batches: List[Dict[str, torch.Tensor]],
+                  generator: torch.Generator):
         if not captured:
             capture(state, batches[0], generator)
         c = captured

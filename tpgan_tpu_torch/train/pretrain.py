@@ -43,6 +43,7 @@ from tpgan_tpu_torch.parallel.mesh import data_group
 from tpgan_tpu_torch.parallel.sharding import mean_gradients_, metrics_group
 from tpgan_tpu_torch.parallel.distributed import barrier, is_main_process
 from tpgan_tpu_torch.train.optim import get_optimizer, multistep_lr
+from tpgan_tpu_torch.utils import trace
 from tpgan_tpu_torch.utils.device import resolve_device
 
 # threshold-weighted accuracy bands (reference: Pretrain.py:29-32)
@@ -226,7 +227,13 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
     placed first (``place(state, infer_param_shardings(mesh, state))``):
     its sharded layers gather or sum over the model group, SGD acts on
     each rank's slices, and the gradients are averaged as
-    ``parallel.sharding.mean_gradients_`` says."""
+    ``parallel.sharding.mean_gradients_`` says.
+
+    A step is five spans in turn (``utils.trace``): ``pretrain.forward``
+    (decode and model), ``pretrain.loss``, ``pretrain.backward`` (with the
+    gradients' mean over a mesh), ``pretrain.optimizer`` (with the
+    schedule) and ``pretrain.metrics`` (decode, accuracy, their
+    all-reduce)."""
     device = next(model.parameters()).device
     decode = decode_for_head_mode(cfg.pretrain.head_mode)
     _group, rank, ranks = data_group(mesh)
@@ -235,35 +242,40 @@ def make_pretrain_step(cfg: Config, model: MobileNetV2, optimizer: torch.optim.O
 
     def step(state: PretrainState, images, labels, generator: Optional[torch.Generator] = None,
              *, u: Optional[torch.Tensor] = None, return_aux: bool = False):
-        x = decode_images(images, device)
-        y = torch.as_tensor(labels, device=device).float()
-        model.train()
-        loc, cls = model(x)
-        if u is not None:
-            u = torch.as_tensor(u, device=device)
-        if ranks > 1:  # this rank's rows of the global draw
-            b = x.shape[0]
-            if u is None:
-                u = torch.rand((b * ranks, loc.shape[1]), generator=generator, device=device)
-            u = u[rank * b:(rank + 1) * b]
-        loss, aux = multitask_landmark_loss(loc, cls, y, u, generator=generator,
-                                            **_loss_kwargs(cfg, x.shape[2:], device))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mean_gradients_(model, mesh)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        state.step += 1
-        with torch.no_grad():
-            loc, cls = loc.detach(), cls.detach()
-            decoded = decode(loc, cls)
-            acc = landmark_accuracy(decoded.points, decoded.valid, y)
-        metrics = {"loss": loss.detach(), "accuracy": acc,
-                   **{k: aux[k].detach() for k in
-                      ("location_loss", "classification_loss", "num_positives")}}
-        if metric_group is not None:  # the global means
-            metrics = all_reduce_metrics(metrics, metric_group)
+        with trace.span("pretrain.forward"):
+            x = decode_images(images, device)
+            y = torch.as_tensor(labels, device=device).float()
+            model.train()
+            loc, cls = model(x)
+        with trace.span("pretrain.loss"):
+            if u is not None:
+                u = torch.as_tensor(u, device=device)
+            if ranks > 1:  # this rank's rows of the global draw
+                b = x.shape[0]
+                if u is None:
+                    u = torch.rand((b * ranks, loc.shape[1]), generator=generator, device=device)
+                u = u[rank * b:(rank + 1) * b]
+            loss, aux = multitask_landmark_loss(loc, cls, y, u, generator=generator,
+                                                **_loss_kwargs(cfg, x.shape[2:], device))
+        with trace.span("pretrain.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            mean_gradients_(model, mesh)
+        with trace.span("pretrain.optimizer"):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+            state.step += 1
+        with trace.span("pretrain.metrics"):
+            with torch.no_grad():
+                loc, cls = loc.detach(), cls.detach()
+                decoded = decode(loc, cls)
+                acc = landmark_accuracy(decoded.points, decoded.valid, y)
+            metrics = {"loss": loss.detach(), "accuracy": acc,
+                       **{k: aux[k].detach() for k in
+                          ("location_loss", "classification_loss", "num_positives")}}
+            if metric_group is not None:  # the global means
+                metrics = all_reduce_metrics(metrics, metric_group)
         if return_aux:
             return state, metrics, {"assigned": aux["assigned"], "keep_bg": aux["keep_bg"],
                                     "loc": loc, "cls": cls}

@@ -9,13 +9,24 @@ thousands of kernels from Python. Used by
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
-from tpgan_tpu_torch.ops import kernels
+from tpgan_tpu_torch.ops import _build, kernels
+from tpgan_tpu_torch.utils import trace
 
 T = TypeVar("T")
+
+# Host seconds of every capture in this process (:func:`capture`).
+_capture_seconds = 0.0
+
+
+def capture_seconds() -> float:
+    """Host seconds this process has spent in :func:`capture`: the warm-up
+    calls and the captures, without the kernel builds they started."""
+    return _capture_seconds
 
 
 def capture(
@@ -40,8 +51,13 @@ def capture(
     them at the capture, which the launch counts leave out
     (``ops.kernels.captured_launches``); a replay adds nothing to them.
 
+    Each capture adds its host seconds, warm-up included and the kernels'
+    first builds (``ops._build``) left out, to :func:`capture_seconds`.
+
     Whatever the capture raises is raised: nothing falls back to eager
     calls."""
+    global _capture_seconds
+    start, built = time.perf_counter(), _build.build_seconds()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -56,6 +72,7 @@ def capture(
     with kernels.captured_launches() as launches, \
             torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn()
+    _capture_seconds += time.perf_counter() - start - (_build.build_seconds() - built)
     return graph, out, launches
 
 
@@ -69,24 +86,26 @@ def graphed_per_shape(fn: Callable[..., T], device: torch.device, warmup: int = 
     replays it and returns copies of its outputs, a tensor or a tuple of
     tensors. A failed capture raises; nothing falls back to eager calls.
     ``graphed.launches()`` is {argument shapes and dtypes: the port's
-    kernel launches of one replay} for each captured graph."""
+    kernel launches of one replay} for each captured graph. A call is the
+    span ``graph.dispatch`` (``utils.trace``)."""
     captured: Dict[tuple, tuple] = {}
 
     @torch.inference_mode()
     def graphed(*args):
-        args = [torch.as_tensor(a) for a in args]
-        key = tuple((tuple(a.shape), a.dtype) for a in args)
-        if key not in captured:
-            static = [a.to(device, copy=True) for a in args]
-            graph, out, launches = capture(lambda: fn(*static), warmup)
-            captured[key] = (static, graph, out, launches)
-        static, graph, out, _launches = captured[key]
-        for buf, a in zip(static, args):
-            buf.copy_(a, non_blocking=True)
-        graph.replay()
-        if isinstance(out, tuple):
-            return tuple(o.clone() for o in out)
-        return out.clone()
+        with trace.span("graph.dispatch"):
+            args = [torch.as_tensor(a) for a in args]
+            key = tuple((tuple(a.shape), a.dtype) for a in args)
+            if key not in captured:
+                static = [a.to(device, copy=True) for a in args]
+                graph, out, launches = capture(lambda: fn(*static), warmup)
+                captured[key] = (static, graph, out, launches)
+            static, graph, out, _launches = captured[key]
+            for buf, a in zip(static, args):
+                buf.copy_(a, non_blocking=True)
+            graph.replay()
+            if isinstance(out, tuple):
+                return tuple(o.clone() for o in out)
+            return out.clone()
 
     graphed.launches = lambda: {key: launches.per_replay
                                 for key, (_s, _g, _o, launches) in captured.items()}
