@@ -337,6 +337,11 @@ TRAIN_STEPS = 5
 TRAIN_F32_BATCH = 8
 PER_STEP = {"fuse_parts": 7, "fuse_parts_bwd": 2, "sym_tv": 1, "sym_tv_bwd": 1,
             "conv3x3_bias_lrelu": 0}
+# the K1 / K2 wrappers' layout copies per bf16 step (``kernels.copy_counts``):
+# the channels-last parts in and canvases out, the canvases' g and the part
+# gradients back, K2's image and its gradient
+COPIES_PER_STEP = {"fuse_parts_in": 28, "fuse_parts_out": 7, "fuse_parts_bwd_g": 2,
+                   "fuse_parts_bwd_out": 8, "sym_tv_in": 1, "sym_tv_bwd_out": 1}
 # the port's kernels by their CUDA function names, as a profiler trace
 # names them (longest first: one name holds no other)
 TRACE_KERNELS = re.compile(r"(fuse_parts_bwd_kernel|fuse_parts_kernel|sym_tv_bwd_general_kernel|"
@@ -974,8 +979,9 @@ def run_train(dev, tag):
     if bwd_variants != {"banded": TRAIN_STEPS, "general": 0}:
         raise AssertionError(f"train path's sym_tv_bwd variants {bwd_variants}: expected the "
                              "banded kernel every step")
-    if copies != {"fuse_parts_bwd_g": 0}:
-        raise AssertionError(f"train path copied g before the fuse backward: {copies}")
+    if copies != {k: v * TRAIN_STEPS for k, v in COPIES_PER_STEP.items()}:
+        raise AssertionError(f"train path's layout copies {copies}, expected "
+                             f"{COPIES_PER_STEP} per step")
     moved = [sum(not torch.equal(a, p) for a, p in zip(b, m.parameters()))
              for b, m in zip(before, models)]
     if min(moved) == 0 or state.step != TRAIN_STEPS:

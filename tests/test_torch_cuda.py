@@ -467,9 +467,92 @@ def test_small_bf16_train_step_goes_through_every_kernel(cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"fuse_parts": 7, "fuse_parts_bwd": 2,
                                        "sym_tv": 1, "sym_tv_bwd": 1, "conv3x3_bias_lrelu": 0}
-    assert kernels.copy_counts() == {"fuse_parts_bwd_g": 0}  # g read where autograd left it
+    # the bf16 models are channels-last: no conv input converted; the NCHW
+    # kernels' wrappers copy the parts in and the canvases out, the two
+    # canvases' g (a channel slice of a channels-last cat's gradient) and
+    # the part gradients back, and K2's image and its gradient
+    assert kernels.layout_counts() == {"to_nhwc": 0, "to_nchw": 0}
+    assert kernels.copy_counts() == {"fuse_parts_in": 28, "fuse_parts_out": 7,
+                                     "fuse_parts_bwd_g": 2, "fuse_parts_bwd_out": 8,
+                                     "sym_tv_in": 1, "sym_tv_bwd_out": 1}
     assert all(torch.isfinite(v.float()) for v in metrics.values())
     assert state.step == 1
+
+
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def _device_kernels(fn, device):
+    """The names of the device kernels one call of ``fn`` runs, profiled."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _profiler_warm_up(device)
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_bf16_gan_drops_layout_transposes_and_the_detector_keeps_its_kernels(cuda):
+    """cuDNN's NCHW<->NHWC transposes in a bf16 GAN train step and in a
+    graphed bf16 synthesis forward, against the same calls before the
+    layout rule (its entries, cast and input patched back to NCHW): a
+    tenth or less of them remain (autograd's second-order conv terms in
+    the GP and the layers cuDNN runs NCHW inside keep theirs). The f32
+    detector's step launches the kernels it launched before the rule."""
+    import contextlib
+    from collections import Counter
+    from unittest import mock
+
+    from tpgan_tpu_torch.ops import blocks
+    from tpgan_tpu_torch.train import gan_trainer
+    from tpgan_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    def transposes(fn):
+        return len([n for n in _device_kernels(fn, cuda) if any(k in n for k in LAYOUT_KERNELS)])
+
+    def before_the_rule(stack):
+        nchw = lambda dtype: torch.contiguous_format  # noqa: E731
+        stack.enter_context(mock.patch.object(blocks, "_conv_cast", blocks._cast))
+        stack.enter_context(mock.patch.object(blocks, "conv_memory_format", nchw))
+        stack.enter_context(mock.patch.object(gan_trainer, "conv_memory_format", nchw))
+
+    cfg = make_config(dict(SMALL, compute_dtype="bfloat16"))
+    batch = synthetic_gan_batch(4, seed=3)
+    crops = {k: v for k, v in batch.items() if k in ("img", "left_eye", "right_eye", "nose",
+                                                      "mouth")}
+    z = np.zeros((4, cfg.G.zdim), np.float32)
+    counts = []
+    for before in (True, False):
+        with contextlib.ExitStack() as stack:
+            if before:
+                before_the_rule(stack)
+            state, gen, disc, g_opt, d_opt = create_gan_state(cfg, 0, cuda)
+            step = make_gan_train_step(cfg, gen, disc, g_opt, d_opt)
+            generator = torch.Generator(device=cuda).manual_seed(0)
+            step(state, batch, generator)  # cuDNN's plans, untraced
+            in_step = transposes(lambda: step(state, batch, generator))
+            synthesize = gan_trainer.make_graphed_synthesize_fn(cfg, gen)
+            synthesize(crops, z)  # the capture
+            counts.append((in_step, transposes(lambda: synthesize(crops, z))))
+    (step_before, synth_before), (step_after, synth_after) = counts
+    assert step_before >= 100 and step_after * 10 <= step_before, counts
+    assert synth_before >= 20 and synth_after * 10 <= synth_before, counts
+
+    dcfg = make_config({"pretrain": {"image_size": 128}})
+    rng = np.random.RandomState(1)
+    x = (rng.uniform(0, 1, (8, 128, 128, 3)) * 255).astype(np.uint8)
+    lbl = rng.uniform(32, 96, (8, 8)).astype(np.float32)
+    counts = []
+    for before in (True, False):
+        with contextlib.ExitStack() as stack:
+            if before:
+                before_the_rule(stack)
+            dstate, model, opt = create_pretrain_state(dcfg, 2, cuda)
+            dstep = make_pretrain_step(dcfg, model, opt, dstate.scheduler)
+            draws = torch.Generator(device=cuda).manual_seed(0)
+            dstep(dstate, x, lbl, draws)
+            counts.append(Counter(_device_kernels(lambda: dstep(dstate, x, lbl, draws), cuda)))
+    assert counts[0] == counts[1]
 
 
 def _check_conv3x3(shape, dtype, device, call, variant):

@@ -28,7 +28,16 @@ from tpgan_tpu_torch.models.mobilenet_v2 import INVERTED_RESIDUAL_SETTING, Inver
 from tpgan_tpu_torch.models.resnet import ResNet18
 from tpgan_tpu_torch.ops import initializers as init_lib
 from tpgan_tpu_torch.ops.activations import RELU6, apply_activation
-from tpgan_tpu_torch.ops.blocks import BatchNorm2d, Conv2d, LinearBlock, dropout, reset_parameters
+from tpgan_tpu_torch.ops.blocks import (
+    BatchNorm2d,
+    Conv2d,
+    LinearBlock,
+    cast_parameters_,
+    conv_memory_format,
+    dropout,
+    reset_parameters,
+)
+from tpgan_tpu_torch.ops.kernels import to_memory_format
 from tpgan_tpu_torch.utils.device import resolve_device
 
 # the identity feature of the ResNet18 branch (FeatureExtractModel's default)
@@ -125,13 +134,9 @@ def cast_embedder(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     checkpoint on disk stays f32). BatchNorm keeps float32 parameters and
     statistics and normalises in f32, as the JAX BatchNorm computes;
     JAX's load-time cast also rounds them to bf16, a difference within
-    bf16's own rounding of the activations."""
-    for m in model.modules():
-        if isinstance(m, BatchNorm2d):
-            continue
-        for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
-    return model
+    bf16's own rounding of the activations (``ops.blocks.cast_parameters_``:
+    bf16 conv weights are stored channels-last)."""
+    return cast_parameters_(model, dtype)
 
 
 def make_identity_embed_fn(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -144,15 +149,20 @@ def make_identity_embed_fn(model: nn.Module) -> Callable[[torch.Tensor], torch.T
     gradient, so a G phase through it takes the gradient with respect to
     the images only: no embedder weight gradient is computed and no
     ``.grad`` is set. Images are cast to the model's compute dtype (its
-    first conv's: the compute dtype when one is set, else the weight's);
-    the cast is differentiable, so the loss still reaches the generator."""
+    first conv's: the compute dtype when one is set, else the weight's)
+    and put in that dtype's conv layout (``ops.blocks.conv_memory_format``:
+    contiguous NCHW for an f32 embedder fed a bf16 generator's
+    channels-last images, one copy counted in
+    ``ops.kernels.layout_counts()``); both are differentiable, so the loss
+    still reaches the generator."""
     model.eval()
     model.requires_grad_(False)
     conv = next(m for m in model.modules() if isinstance(m, Conv2d))
     dtype = conv.compute_dtype or conv.weight.dtype
+    layout = conv_memory_format(dtype)
 
     def embed(images: torch.Tensor) -> torch.Tensor:
-        logits, feats = model(images.to(dtype))
+        logits, feats = model(to_memory_format(images.to(dtype), layout))
         return feats if feats is not None else logits
 
     return embed

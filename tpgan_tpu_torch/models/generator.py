@@ -1,7 +1,8 @@
 """Generator — the two-pathway TP-GAN generator: four LocalPathways, the
 max-fuser, the GlobalPathway, and the identity classification head
 (reference: D_and_G_model.py:331-407). The port of
-``tpgan_tpu/models/generator.py``, on NCHW tensors.
+``tpgan_tpu/models/generator.py``, on NCHW-shaped tensors (channels-last
+in memory in bf16: ``ops.blocks``).
 
 All three fuses go through the kernel wrapper ``ops.kernels.fuse_parts``:
 the hand-written CUDA kernel on the card, its plain version on the CPU.
@@ -133,10 +134,7 @@ class Generator(nn.Module):
         fuse = fuse_parts_plain if self.plain_fuse else fuse_parts
         fused_feature = fuse(le_feat, re_feat, no_feat, mo_feat)
         fused_fake = fuse(le_img, re_img, no_img, mo_img)
-        fused_origin = fuse(
-            left_eye.contiguous(), right_eye.contiguous(), nose.contiguous(),
-            mouth.contiguous(),
-        )
+        fused_origin = fuse(left_eye, right_eye, nose, mouth)
 
         img128_fake, encoder_feature = self.global_pathway(
             i128, fused_fake, fused_feature, z

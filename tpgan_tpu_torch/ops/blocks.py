@@ -13,11 +13,31 @@ tests/test_torch_blocks.py):
   output = act(main(x) + scaling_factor * shortcut(x)); an identity
   shortcut with in != out or stride != 1 is rejected, as in the JAX block.
 
-PyTorch layout: NCHW activations, OIHW conv weights, IOHW transposed-conv
-weights, (out, in) linear weights, and BatchNorm buffers named
-``running_mean`` / ``running_var`` — so reference-layout state_dicts load.
-Parameter names follow the JAX tree (``conv``, ``deconv``, ``bn``,
+PyTorch layout: NCHW-shaped activations, OIHW conv weights, IOHW
+transposed-conv weights, (out, in) linear weights, and BatchNorm buffers
+named ``running_mean`` / ``running_var`` — so reference-layout state_dicts
+load. Parameter names follow the JAX tree (``conv``, ``deconv``, ``bn``,
 ``conv0``...), which keeps :mod:`tpgan_tpu_torch.convert` a mechanical walk.
+
+Memory layout, one rule keyed on a conv's compute dtype
+(:func:`conv_memory_format`): a bf16 (or fp16) conv or transposed conv
+reads its input and weight channels-last (NHWC in memory) and writes
+channels-last, since cuDNN's half-precision tensor-core convs on sm90 are
+NHWC kernels and transpose NCHW operands in and out of every fprop,
+dgrad and wgrad. Its input is converted only where it arrives in another
+layout (``ops.kernels.to_memory_format``, counted in
+``ops.kernels.layout_counts()``); its weight is cast straight into the
+layout (``_WeightCast``, whose backward hands the parameter a contiguous
+gradient). Any other conv (f32, f64) takes its input as it arrives and
+its weight as stored, as before: the port hands them contiguous NCHW
+(the GAN entries of an f32 model, the detector's batches, the identity
+embedder's cast in the GAN step). Elementwise ops, ``torch.cat``,
+BatchNorm, the reflect pad and the K1 / K2 wrappers carry the layout
+along, so a bf16 model stays channels-last from its entry to its exit.
+Parameters and ``state_dict`` values stay contiguous float32;
+:func:`compute_copy` stores a serving copy's half-precision conv weights
+channels-last. A layer sharded over a model axis (``tp``) runs as
+before, in whatever layout arrives.
 
 Compute dtype: each conv, transposed conv and linear layer casts its
 input *and* its weight (and bias) to ``compute_dtype`` inside
@@ -96,6 +116,7 @@ from tpgan_tpu_torch.ops.activations import (
     is_saturating,
     negative_slope,
 )
+from tpgan_tpu_torch.ops.kernels import is_channels_last, to_memory_format
 from tpgan_tpu_torch.ops.resize import resize
 from tpgan_tpu_torch.parallel import tensor_parallel
 from tpgan_tpu_torch.parallel.collectives import all_reduce_sum
@@ -120,7 +141,15 @@ def _canon_padding(padding: Padding):
 
 
 def reflect_pad(x: torch.Tensor, lrtb: Sequence[int]) -> torch.Tensor:
-    """ReflectionPad2d, torch's (left, right, top, bottom) order, NCHW."""
+    """ReflectionPad2d, torch's (left, right, top, bottom) order, NCHW. A
+    channels-last x is padded as the (B, 1, H, W, C) view it is in memory
+    (a 3-D reflect pad, C unpadded), so the result stays channels-last on
+    every device: CUDA's 2-D reflect pad writes contiguous NCHW."""
+    if is_channels_last(x):
+        left, right, top, bottom = lrtb
+        y = F.pad(x.permute(0, 2, 3, 1).unsqueeze(1), (0, 0, left, right, top, bottom),
+                  mode="reflect")
+        return y.squeeze(1).permute(0, 3, 1, 2)
     return F.pad(x, tuple(lrtb), mode="reflect")
 
 
@@ -179,6 +208,53 @@ def _cast(layer: nn.Module, x: torch.Tensor):
     return x.to(dtype), layer.weight.to(dtype), bias
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def conv_memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """The layout of a conv in ``dtype``: channels-last for bf16 and fp16,
+    contiguous NCHW for any other dtype (module docstring)."""
+    return torch.channels_last if dtype in _HALF else torch.contiguous_format
+
+
+class _WeightCast(torch.autograd.Function):
+    """``w.to(dtype, memory_format=torch.channels_last)`` whose backward
+    casts the gradient back to ``w``'s dtype as a contiguous tensor, one op
+    each way. A plain ``.to`` would hand the contiguous parameter a
+    channels-last gradient (the optimizers' foreach updates take their
+    per-tensor path on mixed strides). Its backward is a cast, so it
+    differentiates again."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+def _conv_cast(layer: nn.Module, x: torch.Tensor):
+    """:func:`_cast` for a conv. A half-precision conv on one device (no
+    ``tp``) takes its input and weight channels-last: the input converted
+    only where it arrives otherwise (``ops.kernels.to_memory_format``,
+    counted), the weight cast straight into the layout (:class:`_WeightCast`)
+    unless stored so (:func:`compute_copy`). Any other conv, and an
+    int8-prepared layer (its float weight an empty placeholder), is
+    :func:`_cast`'s, as before."""
+    w = layer.weight
+    dtype = layer.compute_dtype or w.dtype
+    if dtype not in _HALF or layer.tp is not None or w.dim() != 4:
+        return _cast(layer, x)
+    if w.dtype != dtype or not w.is_contiguous(memory_format=torch.channels_last):
+        w = _WeightCast.apply(w, dtype)
+    b = layer.bias
+    if b is not None and b.dtype != dtype:
+        b = b.to(dtype)
+    return to_memory_format(x.to(dtype), torch.channels_last), w, b
+
+
 class Conv2d(_Quantizable):
     """Conv with torch-default init and reference padding forms; OIHW,
     (out, in / groups, kh, kw) when grouped."""
@@ -224,7 +300,7 @@ class Conv2d(_Quantizable):
             self._bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = _cast(self, x)
+        x, w, b = _conv_cast(self, x)
         if self.reflect is not None:
             x = reflect_pad(x, self.reflect)
         if self.quant_mode is not None:
@@ -346,7 +422,7 @@ class ConvTranspose2d(_Quantizable):
         return plan_h, plan_w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = _cast(self, x)
+        x, w, b = _conv_cast(self, x)
         if self.quant_mode is not None:
             y = self._quant_forward(x)
             if y is not None:
@@ -679,17 +755,27 @@ def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Mod
     return module
 
 
-def compute_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """A copy of ``module`` whose conv and linear weights are in ``dtype``.
-    BatchNorm stays float32: it normalises in f32 and casts back, as the
-    JAX BatchNorm2d does."""
-    out = copy.deepcopy(module)
-    for m in out.modules():
+def cast_parameters_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the conv and linear parameters of ``module`` to ``dtype`` in
+    place, each conv and transposed-conv weight into
+    :func:`conv_memory_format` (so a forward casts nothing). BatchNorm
+    stays float32: it normalises in f32 and casts back, as the JAX
+    BatchNorm2d does."""
+    for m in module.modules():
         if isinstance(m, BatchNorm2d):
             continue
+        conv = isinstance(m, (Conv2d, ConvTranspose2d))
         for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
-    return out
+            layout = conv_memory_format(dtype) if conv and p.dim() == 4 else \
+                torch.preserve_format
+            p.data = p.data.to(dtype, memory_format=layout)
+    return module
+
+
+def compute_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` whose conv and linear parameters are in ``dtype``
+    (:func:`cast_parameters_`)."""
+    return cast_parameters_(copy.deepcopy(module), dtype)
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:

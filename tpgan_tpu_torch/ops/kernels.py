@@ -22,8 +22,8 @@ version, its autograd wrapper and its launch counter.
   keeps only the parts, not the canvas), and writes grad = g where part
   >= out, else 0, in 16-byte stores (ties share; NaN gets 0, as
   ``torch.where`` gives). It reads g as autograd hands it when its rows
-  are dense (a channel slice of a ``torch.cat``'s gradient, for one); any
-  other layout is copied once and counted in ``copy_counts()``.
+  are dense (a channel slice of an NCHW ``torch.cat``'s gradient, for
+  one); any other layout is copied once and counted in ``copy_counts()``.
 
 ``symmetry_tv_losses`` — the fused symmetry + total-variation reduction,
 forward and backward (source: ``tpgan_tpu_torch/csrc/sym_tv.cu``).
@@ -66,11 +66,16 @@ only (source: ``tpgan_tpu_torch/csrc/conv3x3.cu``).
   per-pixel bit table; bound by its 9.66 GFLOP at 67 TFLOP/s, 144 us).
   ``conv3x3_variant_counts`` counts the launches of each.
 
-Layout: contiguous NCHW for K1 and K2, as the port's modules emit it; NHWC
-x and HWIO weight for K3, the JAX function's. f32 and bf16. A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel or raises (wrong
-dtype, layout, build or launch error) — there is no fallback. No wrapper
-syncs with the host or copies to it.
+Layout: contiguous NCHW for the K1 and K2 kernels, as the port's f32
+modules emit it; the wrappers of both directions copy a channels-last
+argument (a bf16 module's, ``ops.blocks.conv_memory_format``) to NCHW
+and their results back to channels-last, each copy counted in
+:func:`copy_counts`. NHWC x and HWIO weight for K3, the JAX function's.
+f32 and bf16. A CPU tensor runs the plain version; a CUDA tensor launches
+the kernel or raises (wrong dtype, other layouts, build or launch error)
+— there is no fallback. No wrapper syncs with the host or copies to it.
+:func:`to_memory_format` is the conv layers' input conversion, counted in
+:func:`layout_counts`.
 """
 
 from __future__ import annotations
@@ -100,10 +105,18 @@ _CONV3X3_VARIANTS = dict.fromkeys(("tma_wgmma", "mma_sync", "f32"), 0)
 # each also counts once under "sym_tv_bwd" above.
 _SYM_TV_BWD_VARIANTS = dict.fromkeys(("banded", "general"), 0)
 
-# Copies a wrapper made before a launch: the fuse backward's of a g whose
-# rows are not dense.
-_COPIES = dict.fromkeys(("fuse_parts_bwd_g",), 0)
-_COUNTERS = (_LAUNCHES, _CONV3X3_VARIANTS, _SYM_TV_BWD_VARIANTS, _COPIES)
+# Copies a K1 or K2 wrapper made around its NCHW kernel, on every device:
+# each channels-last argument copied to contiguous NCHW (``*_in``), each
+# result copied back to channels-last for a channels-last argument
+# (``*_out``), and the fuse backward's g whose rows are not dense.
+_COPIES = dict.fromkeys(("fuse_parts_in", "fuse_parts_out", "fuse_parts_bwd_g",
+                         "fuse_parts_bwd_out", "sym_tv_in", "sym_tv_bwd_out"), 0)
+
+# Conversions the conv layers made of their inputs (``to_memory_format``):
+# to channels-last for a half-precision conv, to contiguous NCHW for any
+# other. An input already in its conv's layout is not counted.
+_LAYOUTS = dict.fromkeys(("to_nhwc", "to_nchw"), 0)
+_COUNTERS = (_LAUNCHES, _CONV3X3_VARIANTS, _SYM_TV_BWD_VARIANTS, _COPIES, _LAYOUTS)
 
 FUSE_SOURCE = "fuse_parts.cu"
 SYM_TV_SOURCE = "sym_tv.cu"
@@ -135,12 +148,18 @@ def sym_tv_bwd_variant_counts() -> Dict[str, int]:
 
 
 def copy_counts() -> Dict[str, int]:
-    """{input: copies a wrapper made of it before a launch, so far}."""
+    """{tensor: layout copies the K1 / K2 wrappers made of it, so far}."""
     return dict(_COPIES)
 
 
+def layout_counts() -> Dict[str, int]:
+    """{"to_nhwc", "to_nchw": conversions of a conv input so far}
+    (:func:`to_memory_format`)."""
+    return dict(_LAYOUTS)
+
+
 def reset_launch_counts() -> None:
-    """Set the launch, variant and copy counts to 0."""
+    """Set the launch, variant, copy and layout counts to 0."""
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
@@ -159,8 +178,8 @@ class CapturedLaunches:
 def captured_launches() -> Iterator[CapturedLaunches]:
     """Around a CUDA graph's capture: the launches the wrappers record
     inside go into the yielded :class:`CapturedLaunches`, and the launch,
-    variant and copy counts are put back as they were (a capture runs no
-    kernel)."""
+    variant, copy and layout counts are put back as they were (a capture
+    runs no kernel)."""
     before = [dict(c) for c in _COUNTERS]
     record = CapturedLaunches()
     try:
@@ -180,6 +199,41 @@ def _check_launchable(name: str, tensors: Sequence[torch.Tensor], layout: str = 
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel takes contiguous {layout} tensors")
     return _DTYPE_SUFFIX[dtype]
+
+
+def to_memory_format(x: torch.Tensor, memory_format: torch.memory_format) -> torch.Tensor:
+    """``x`` in ``memory_format`` (``torch.channels_last`` or
+    ``torch.contiguous_format``): ``x`` itself when it already is, else one
+    copy, counted in :func:`layout_counts`. The conv layers call it on
+    their inputs (``ops.blocks.conv_memory_format``)."""
+    if x.is_contiguous(memory_format=memory_format):
+        return x
+    _LAYOUTS["to_nhwc" if memory_format == torch.channels_last else "to_nchw"] += 1
+    return x.contiguous(memory_format=memory_format)
+
+
+def is_channels_last(t: torch.Tensor) -> bool:
+    """A 4-D tensor laid out channels-last and not also contiguous NCHW
+    (with C = 1, or H = W = 1, it is both)."""
+    return (t.dim() == 4 and not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last))
+
+
+def _nchw_copy(t: torch.Tensor, key: str) -> torch.Tensor:
+    """A channels-last ``t`` as the contiguous NCHW tensor the K1 / K2
+    kernels take, one copy counted under ``copy_counts()[key]``; any other
+    ``t`` as it is (a launch refuses a layout it does not take)."""
+    if not is_channels_last(t):
+        return t
+    _COPIES[key] += 1
+    return t.contiguous()
+
+
+def _channels_last_copy(t: torch.Tensor, key: str) -> torch.Tensor:
+    """An NCHW result handed back to a channels-last caller: one copy,
+    counted under ``copy_counts()[key]``."""
+    _COPIES[key] += 1
+    return t.contiguous(memory_format=torch.channels_last)
 
 
 def _stream() -> int:
@@ -380,12 +434,22 @@ def _launch_fuse(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def _dense_rows(g: torch.Tensor) -> torch.Tensor:
+    """The fuse backward's ``g`` as the kernel reads it: as it is when its
+    rows are dense (strides 128 and 1 in H and W; any batch and channel
+    strides), else a contiguous copy, counted in
+    ``copy_counts()["fuse_parts_bwd_g"]``."""
+    if g.stride(3) == 1 and g.stride(2) == CANVAS_SIZE:
+        return g
+    _COPIES["fuse_parts_bwd_g"] += 1
+    return g.contiguous()
+
+
 def _launch_fuse_bwd(parts: Sequence[torch.Tensor], g: torch.Tensor) -> List[torch.Tensor]:
-    """The backward kernel: the canvas is recomputed from the parts. ``g``
-    is taken as autograd hands it, in the parts' dtype, when its rows are
-    dense (strides 128 and 1 in H and W; any batch and channel strides);
-    any other layout is made contiguous first, one copy counted in
-    ``copy_counts()["fuse_parts_bwd_g"]`` — the kernel still runs."""
+    """The backward kernel: the canvas is recomputed from the parts. ``g``,
+    in the parts' dtype, goes through :func:`_dense_rows` (read in place
+    when its rows are dense, else one counted copy) — the kernel still
+    runs."""
     suffix = _check_launchable("fuse_parts backward", parts)
     b, c = parts[0].shape[:2]
     if g.dtype != parts[0].dtype:
@@ -393,9 +457,7 @@ def _launch_fuse_bwd(parts: Sequence[torch.Tensor], g: torch.Tensor) -> List[tor
     if tuple(g.shape) != (b, c, CANVAS_SIZE, CANVAS_SIZE) or g.device != parts[0].device:
         raise ValueError(f"fuse_parts backward: g is {tuple(g.shape)} on {g.device}, expected "
                          f"{(b, c, CANVAS_SIZE, CANVAS_SIZE)} on {parts[0].device}")
-    if g.stride(3) != 1 or g.stride(2) != CANVAS_SIZE:
-        g = g.contiguous()
-        _COPIES["fuse_parts_bwd_g"] += 1
+    g = _dense_rows(g)
     grads = [torch.empty_like(p) for p in parts]
     if b * c == 0:
         return grads
@@ -414,22 +476,37 @@ def _launch_fuse_bwd(parts: Sequence[torch.Tensor], g: torch.Tensor) -> List[tor
 class _FuseParts(torch.autograd.Function):
     """Saves only the four parts: the backward recomputes the canvas (in
     the kernel on the card, with ``fuse_parts_plain`` on the CPU), so the
-    canvas can be freed once its consumer is done with it."""
+    canvas can be freed once its consumer is done with it.
+
+    The kernels are NCHW. Channels-last parts (a bf16 generator's) are
+    copied to NCHW, and the canvas and the parts' gradients copied back to
+    channels-last, so the layers around the fuse stay channels-last; a g
+    whose rows are not dense is copied too. Each copy is counted in
+    :func:`copy_counts`, and made on every device, so the CPU counts are
+    the card's."""
 
     @staticmethod
     def forward(ctx, le, re, no, mo):
-        parts = (le, re, no, mo)
+        ctx.channels_last = is_channels_last(le)
+        parts = tuple(_nchw_copy(p, "fuse_parts_in") for p in (le, re, no, mo))
         ctx.save_for_backward(*parts)
         if _dispatch(le, "fuse_parts"):
-            return _launch_fuse(parts)
-        return fuse_parts_plain(*parts)
+            out = _launch_fuse(parts)
+        else:
+            out = fuse_parts_plain(*parts)
+        return _channels_last_copy(out, "fuse_parts_out") if ctx.channels_last else out
 
     @staticmethod
     def backward(ctx, g):
         parts = ctx.saved_tensors
+        g = _dense_rows(g)
         if _dispatch(parts[0], "fuse_parts backward"):
-            return tuple(_launch_fuse_bwd(parts, g))
-        return tuple(fuse_parts_bwd_plain(parts, fuse_parts_plain(*parts), g))
+            grads = _launch_fuse_bwd(parts, g)
+        else:
+            grads = fuse_parts_bwd_plain(parts, fuse_parts_plain(*parts), g)
+        if ctx.channels_last:
+            grads = [_channels_last_copy(t, "fuse_parts_bwd_out") for t in grads]
+        return tuple(grads)
 
 
 def fuse_parts(
@@ -437,7 +514,8 @@ def fuse_parts(
 ) -> torch.Tensor:
     """Scatter-max the four NCHW part maps onto the (B, C, 128, 128)
     canvas: the CUDA kernels on a CUDA tensor, the plain versions on a CPU
-    tensor; differentiable (the backward of ``_fuse_bwd``)."""
+    tensor; differentiable (the backward of ``_fuse_bwd``). The canvas is
+    channels-last when the left eye's map is (``_FuseParts``)."""
     check_parts((le, re, no, mo))
     return _FuseParts.apply(le, re, no, mo)
 
@@ -662,8 +740,14 @@ def _launch_sym_tv_bwd(
 
 
 class _SymmetryTV(torch.autograd.Function):
+    """A channels-last x is copied to NCHW for the kernels and its
+    gradient copied back to channels-last, on every device, each copy
+    counted in :func:`copy_counts` (as ``_FuseParts`` does)."""
+
     @staticmethod
     def forward(ctx, x):
+        ctx.channels_last = is_channels_last(x)
+        x = _nchw_copy(x, "sym_tv_in")
         if _dispatch(x, "symmetry_tv_losses"):
             _sums, sym, tv = _launch_sym_tv(x)
         else:
@@ -675,15 +759,18 @@ class _SymmetryTV(torch.autograd.Function):
     def backward(ctx, g_sym, g_tv):
         (x,) = ctx.saved_tensors
         if _dispatch(x, "symmetry_tv_losses backward"):
-            return _launch_sym_tv_bwd(x, g_sym, g_tv)
-        return sym_tv_bwd_plain(x, g_sym, g_tv)
+            dx = _launch_sym_tv_bwd(x, g_sym, g_tv)
+        else:
+            dx = sym_tv_bwd_plain(x, g_sym, g_tv)
+        return _channels_last_copy(dx, "sym_tv_bwd_out") if ctx.channels_last else dx
 
 
 def symmetry_tv_losses(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(symmetry loss, total-variation loss) of an NCHW image batch as f32
     0-d tensors: sym = mean |x − flip_W x|, tv = mean |Δ_H x| + mean |Δ_W x|
     — the CUDA kernels on a CUDA tensor, the plain versions on a CPU
-    tensor; differentiable, with JAX's gradient at ties."""
+    tensor; differentiable, with JAX's gradient at ties. A channels-last x
+    gets a channels-last gradient (``_SymmetryTV``)."""
     _check_image(x)
     return _SymmetryTV.apply(x)
 

@@ -54,13 +54,14 @@ from tpgan_tpu_torch.ops.blocks import (
     DTYPES,
     BatchNorm2d,
     compute_copy,
+    conv_memory_format,
     dropout_keep_mask,
     frozen_batch_stats,
     reset_parameters,
     set_compute_dtype,
     sync_batch_stats,
 )
-from tpgan_tpu_torch.ops.kernels import fuse_parts
+from tpgan_tpu_torch.ops.kernels import fuse_parts, to_memory_format
 from tpgan_tpu_torch.ops.quant import SYNTHESIS_KEYS, make_int8_model
 from tpgan_tpu_torch.parallel.collectives import all_reduce_metrics
 from tpgan_tpu_torch.parallel.mesh import data_group
@@ -238,15 +239,18 @@ def _to_device(x: ArrayLike, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def _to_device_nchw(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+def _to_device_nchw(batch: Batch, device: torch.device,
+                    memory_format: torch.memory_format = torch.contiguous_format
+                    ) -> Dict[str, torch.Tensor]:
     """Each leaf to ``device`` as it is, then uint8 decoded there: a uint8
     batch crosses to the card as uint8, a quarter of its f32 bytes, as
-    the JAX step decodes inside the jitted step."""
+    the JAX step decodes inside the jitted step. Images come back NCHW in
+    ``memory_format`` (the models' ``ops.blocks.conv_memory_format``):
+    channels-last is the NHWC leaf itself, a view; contiguous NCHW is one
+    copy each (``ops.kernels.to_memory_format``)."""
     moved = {k: _to_device(v, device) for k, v in batch.items()}
-    out = {}
-    for k, t in decode_u8_batch(moved).items():
-        out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
-    return out
+    return {k: to_memory_format(t.permute(0, 3, 1, 2), memory_format) if t.dim() == 4 else t
+            for k, t in decode_u8_batch(moved).items()}
 
 
 class _FrozenForRecompute:
@@ -359,6 +363,7 @@ def make_gan_train_step(
     g_params = list(gen.parameters())
     d_params = list(disc.parameters())
     rate = gen.feature_predict.dropout
+    layout = conv_memory_format(DTYPES[cfg.compute_dtype])
     feature_dim = gen.feature_predict.fc.in_features
     critic = _remat(disc, disc) if remat_critic else disc
     _group, rank, ranks = data_group(mesh)
@@ -426,7 +431,7 @@ def make_gan_train_step(
         models in train mode. The draws are (B, ...) in the plain step and
         (accum, B / accum, ...) with accumulation."""
         device = g_params[0].device
-        batch = _to_device_nchw(batch, device)
+        batch = _to_device_nchw(batch, device, layout)
         b = batch["img"].shape[0]
         if b % accum:
             raise ValueError(f"train.grad_accum_steps={accum} must divide the batch size {b}")
@@ -693,10 +698,11 @@ def synthesize_fn_of(model: Generator) -> Callable[[Mapping[str, ArrayLike], Arr
     synthesis (:func:`make_int8_synthesize_fn`) passes its quantized
     copy. ``synthesize.model`` is ``model``."""
     device = next(model.parameters()).device
+    layout = conv_memory_format(next(model.parameters()).dtype)
     model.eval()
 
-    def nchw(x: ArrayLike) -> torch.Tensor:
-        return torch.as_tensor(x, device=device).permute(0, 3, 1, 2).contiguous()
+    def nchw(x: ArrayLike) -> torch.Tensor:  # channels-last: a view of the NHWC input
+        return to_memory_format(torch.as_tensor(x, device=device).permute(0, 3, 1, 2), layout)
 
     @torch.inference_mode()
     def synthesize(batch: Mapping[str, ArrayLike], z: ArrayLike) -> torch.Tensor:
@@ -705,6 +711,7 @@ def synthesize_fn_of(model: Generator) -> Callable[[Mapping[str, ArrayLike], Arr
             nchw(batch["nose"]), nchw(batch["mouth"]), torch.as_tensor(z, device=device),
             use_dropout=False,
         )
+        # a bf16 model's output is channels-last: its NHWC view is contiguous
         return out.img128_fake.permute(0, 2, 3, 1).contiguous()
 
     synthesize.device = device  # where it runs: make_synthesis_pipeline's inputs go there
